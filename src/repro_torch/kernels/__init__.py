@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels for the mod-p products, with their plain twins.
+
+* :mod:`.barrett` — ``mod_p``, ``matmul_limbs``, ``matmul_folded``: the
+  plain torch ops (the CPU path and the kernels' oracle);
+* :mod:`.modmatmul` — batched and single ``(A @ B) mod p``;
+* :mod:`.polyeval` — skinny-K ``(V @ T) mod p`` share evaluation;
+* :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
+  binding, at first use.
+
+:func:`launch_counts` / :func:`reset_launch_counts` read and zero the
+wrappers' launch counters, so a run can show which kernels it went through.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from . import modmatmul as _modmatmul
+from . import polyeval as _polyeval
+
+WRAPPERS = {
+    "modmatmul_batched": _modmatmul.modmatmul_batched,
+    "modmatmul": _modmatmul.modmatmul,
+    "polyeval": _polyeval.polyeval,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
