@@ -8,20 +8,41 @@
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, all at once) and prints the
    build time and ``-Xptxas -v``'s registers, shared memory and spills.
-3. Holds every kernel against its plain version on the card
+3. Holds every mod-p kernel against its plain version on the card
    (``torch.equal``) for both primes, at the main path's shapes, a ragged
    shape and the all-(p-1) corner, and times both with CUDA events.
-4. Runs the main path: a full-width lm_head projection
+4. Holds the flash-attention kernel against its plain version at the
+   serve path's prefill shapes (llama3.2-1b: Hq 32, Hkv 8, D 64, bf16,
+   T = 2048 and 512), a ragged T, T != S with ``q_offset``, non-causal and
+   fp32, within ``flash_attention.agreement``'s limits (2e-5 in fp32; in
+   bf16 two ULP of each element and 2^-8 in relative Frobenius norm), and
+   shows that two planted faults fail that check; times the kernel, the
+   plain version and ``scaled_dot_product_attention`` (the library
+   yardstick, which the port never calls).
+5. Runs the MPC main path: a full-width lm_head projection
    ``[1, 2048] x [2048, 128256]`` (llama3.2-1b's hidden size and
    vocabulary) through ``connect(MPCSpec(s=2, t=2, z=2)).matmul`` on the
    card; checks it exact in the field, from all 17 workers and from only
-   t^2+z = 6 of them, and within the fixed-point bound on floats; checks
+   t^2+z = 6 of them, and on floats equal to the float64 product of the
+   operands as the field encodes them; checks
    from the launch counters that every product ran in the kernels.
    A ``torch.profiler`` table of one more call shows where its device time
    goes.
-5. Drives the ``tags`` stage (the W = 1 ``modmatmul``) on the main path's
+6. Drives the ``tags`` stage (the W = 1 ``modmatmul``) on the main path's
    plan.
-6. Prints one ``{"kernels": [...]}`` line and, last, the
+7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
+   drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
+   lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
+   Checks every request's tokens, mid-stream admission, 16 flash launches
+   per prefill and no plain attention, and that a second run gives the
+   same tokens; holds the kernel against its plain version on layer 0's
+   real q, k, v; prints prefill times (one ``prefill`` call per prompt
+   length), the scheduler's decode step times and peak memory.
+8. Runs the served model's lm_head privately: the final hidden state of
+   the first 2048-token request times the tied head ``embed.T`` through
+   the MPC session, equal to the float64 product of the fixed-point
+   operands, with the same greedy token.
+9. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero.
@@ -36,12 +57,21 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate and int8 tensor-core peak
+# NVIDIA H100 SXM data sheet (dense): HBM rate, int8 and bf16 tensor-core
+# peaks, fp32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
 
 D_MODEL, VOCAB = 2048, 128256      # llama3.2-1b: hidden size, vocabulary
 MAIN_BLOCKS = 63                   # choose_block(2, 2, 1, 2048, 128256) -> m = 2048
+N_LAYERS, N_HEADS, N_KV, HEAD_DIM = 16, 32, 8, 64   # llama3.2-1b attention
+
+# the serve phase: 8 requests on 4 lanes, KV blocks of 16 slots
+SERVE_PROMPTS = (2048, 128, 1024, 512, 2048, 512, 128, 1024)
+SERVE_MAX_NEW = (32, 8, 24, 16, 8, 32, 16, 24)
+SERVE_LANES, SERVE_BLOCK = 4, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -58,10 +88,10 @@ def limbs(p):
     return -(-p.bit_length() // 7)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
     """(ms, 'bytes'|'operations'): the least time an H100 could take."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -71,6 +101,50 @@ def mm_work(w, m, k, n, p):
 
 def pe_work(n, k, c, p):
     return 8 * (n * k + k * c + n * c), 2 * n * k * c * limbs(p) ** 2
+
+
+def attn_work(q, k, causal, q_offset):
+    """(bytes, flops, peak rate) of one attention call: q, k, v read once
+    and o written once; 4 D flops (q k and p v) per visible (row, key) pair
+    and head, counted for this call's mask."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    pairs = (sum(max(0, min(s, q_offset + i + 1)) for i in range(t)) if causal
+             else t * s)
+    nbytes = q.element_size() * (2 * b * t * hq * d + 2 * b * s * hkv * d)
+    peak = BF16_OPS_PER_S if q.element_size() == 2 else FP32_OPS_PER_S
+    return nbytes, 4 * d * hq * b * pairs, peak
+
+
+def sdpa(q, k, v, causal):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same ``[B, T, H, D]`` operands (timed only; the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def planted_faults(q, k, v, ref, *, causal, q_offset):
+    """Two wrong outputs for the check against the plain version to reject,
+    made with the plain version: the softmax scale off by 1 %, and the last
+    64 query rows without the last 64 keys (a kv loop that stops one of the
+    kernel's 64-key tiles early for the last q tile)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    t, s, d = q.shape[1], k.shape[1], q.shape[3]
+    tile = 64
+    yield "softmax scale x 1.01", flash_attention_plain(
+        q, k, v, causal=causal, q_offset=q_offset, scale=1.01 * d ** -0.5)
+    tail = flash_attention_plain(q[:, t - tile:], k[:, :s - tile],
+                                 v[:, :s - tile], causal=causal,
+                                 q_offset=q_offset + t - tile)
+    yield (f"last {tile} rows miss the last {tile} keys",
+           torch.cat([ref[:, :t - tile], tail], dim=1))
 
 
 def time_ms(torch, fn, iters):
@@ -92,13 +166,190 @@ def ptxas_lines(log):
     """``-Xptxas -v`` usage lines, each under its kernel's short name."""
     out, name = [], "?"
     for line in log.splitlines():
-        entry = re.search(r"\d((?:[a-z]+_)*kernel)I?((?:Li\d+E)*)", line)
+        entry = re.search(
+            r"\d((?:[a-z]+_)*kernel)I?((?:Li\d+E|f|13__nv_bfloat16)*)", line)
         if entry and "Compiling entry" in line:
-            args = re.findall(r"\d+", entry.group(2))
+            args = [a or ("float" if f else "bf16") for a, f, _ in
+                    re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)", entry.group(2))]
             name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         elif "Used" in line or "spill" in line:
             out.append(f"  {name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def serve_phase(torch, np, dev, seed, hold_flash):
+    """Serve llama3.2-1b at full width on the card, twice from one seed.
+
+    Returns what the later phases need: the config, the weights, the first
+    2048-token prompt and the flash launches of the first run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve import Engine
+
+    cfg = get_config("llama3.2-1b")
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.vocab) == (N_LAYERS, D_MODEL, N_HEADS,
+                                                   N_KV, HEAD_DIM, VOCAB),
+            f"llama3.2-1b config changed: {cfg}")
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(w.numel() * w.element_size() for w in params.parameters())
+    print(f"serve: {cfg.name} at its published config ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}); "
+          f"{nbytes / 1e9:.3f} GB of weights drawn from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    eng = Engine(cfg, params, block_size=SERVE_BLOCK)
+    require(eng.device.type == "cuda", f"engine on {eng.device}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, (1, t)) for t in SERVE_PROMPTS]
+    max_len = max(t + n - 1 for t, n in zip(SERVE_PROMPTS, SERVE_MAX_NEW,
+                                            strict=True))
+
+    def serve_once(what):
+        sched = eng.make_scheduler(lanes=SERVE_LANES, max_len=max_len)
+        rids = [sched.submit(pr, n) for pr, n in zip(prompts, SERVE_MAX_NEW,
+                                                     strict=True)]
+        # host clock around each synchronised step; a step that admits no
+        # request is one decode step for the lanes active before it
+        decode = []                     # (lanes, ms) of the decode-only steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain0 = flash_attention_plain.calls
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        more = True
+        while more:
+            lanes, prefills = sched.active(), sched.stats["prefills"]
+            ts = time.perf_counter()
+            more = sched.step()
+            torch.cuda.synchronize()
+            if sched.stats["prefills"] == prefills:
+                decode.append((lanes, (time.perf_counter() - ts) * 1e3))
+        done = dict(sched.finished)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        plain = flash_attention_plain.calls - plain0
+        peak = torch.cuda.max_memory_allocated()
+        toks = [done[r] for r in rids]
+        for r, n in zip(toks, SERVE_MAX_NEW, strict=True):
+            require(r.shape == (n,), f"{what}: {r.shape[0]} tokens, want {n}")
+            require(bool(((r >= 0) & (r < cfg.vocab)).all()),
+                    f"{what}: token outside the vocabulary")
+        prefills = sched.stats["prefills"]
+        require(prefills == len(SERVE_PROMPTS), f"{what}: {prefills} prefills")
+        require(sched.stats["admitted_inflight"] > 0,
+                f"{what}: no request was admitted mid-stream")
+        require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
+                           "polyeval": 0,
+                           "flash_attention": cfg.n_layers * prefills},
+                f"{what}: launch counts {counts}")
+        require(plain == 0, f"{what}: {plain} plain attention calls on the card")
+        require(sched.alloc.used_blocks() == 0, f"{what}: blocks still held")
+        require(sched.stats["stalls"] == 0, f"{what}: {sched.stats['stalls']} "
+                f"stalls in a pool sized for the worst case")
+        print(f"  {what}: {len(rids)} requests, {sum(SERVE_MAX_NEW)} tokens in "
+              f"{wall * 1e3:.1f} ms wall; {sched.stats['steps']} decode steps, "
+              f"admitted in flight {sched.stats['admitted_inflight']}, "
+              f"peak KV blocks {sched.alloc.stats['peak_used']} of "
+              f"{sched.alloc.n_blocks - 1}; launches {counts}, plain attention "
+              f"calls {plain}", flush=True)
+        return dict(toks=toks, counts=counts, wall=wall, decode=decode,
+                    peak=peak, pool=sched.pool)
+
+    print(f"serve: Engine on {eng.device}, scheduler with {SERVE_LANES} lanes, "
+          f"block size {SERVE_BLOCK}; prompts {list(SERVE_PROMPTS)}, max_new "
+          f"{list(SERVE_MAX_NEW)}", flush=True)
+    first = serve_once("run 1")
+    pool_bytes = sum(x.numel() * x.element_size()
+                     for x in (first["pool"].k, first["pool"].v))
+    del first["pool"]
+    second = serve_once("run 2 (same seed)")
+    del second["pool"]
+    require(all(np.array_equal(a, b) for a, b in zip(first["toks"],
+                                                     second["toks"], strict=True)),
+            "serve: a second run from the same seed gave other tokens")
+    print("  run 2 tokens equal run 1's", flush=True)
+
+    # time to first token: the model's prefill of one prompt of each length,
+    # the call the scheduler makes on admission, on the host clock around a
+    # synchronised call, best of 3
+    by_len = {}
+    for pr in prompts:
+        tok = torch.as_tensor(pr, device=dev)
+        if tok.shape[1] in by_len:
+            continue
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.prefill(cfg, params, tok)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        by_len[tok.shape[1]] = min(runs)
+    print("  prefill ms per prompt (host clock around a synchronised call, "
+          "best of 3): " + ", ".join(f"T={t}: {ms:.2f}"
+                                     for t, ms in sorted(by_len.items())),
+          flush=True)
+    dec = [ms for _, ms in second["decode"]]
+    n_dec = sum(lanes for lanes, _ in second["decode"])
+    print(f"  decode (run 2, steps that admitted no request): {len(dec)} steps, "
+          f"{sum(dec) / len(dec):.3f} ms mean, {min(dec):.3f} ms min per step "
+          f"(up to {SERVE_LANES} lanes); {n_dec} tokens in {sum(dec):.1f} ms = "
+          f"{n_dec / sum(dec) * 1e3:.1f} tokens/s; all {sum(SERVE_MAX_NEW)} "
+          f"tokens {sum(SERVE_MAX_NEW) / second['wall']:.1f} tokens/s over the "
+          f"whole run", flush=True)
+    print(f"  weights {nbytes / 2**30:.3f} GiB, KV pool {pool_bytes / 2**30:.3f} "
+          f"GiB; peak memory {second['peak'] / 2**30:.3f} GiB "
+          f"(max_memory_allocated)", flush=True)
+
+    # the kernel on the q, k, v that layer 0 makes of the first long prompt
+    tok0 = torch.as_tensor(prompts[0], device=dev)
+    lp = params.layers[0]
+    h = layers.rms_norm(params.embed[tok0], lp["attn_norm"], cfg.norm_eps)
+    pos = torch.arange(tok0.shape[1], device=dev)[None]
+    q, k, v = layers.gqa_project(h, lp, cfg, positions=pos)
+    hold_flash(f"layer 0's q, k, v of the first {tok0.shape[1]}-token prompt",
+               q, k, v, controls=True)
+    del q, k, v, h
+
+    # where a step's time goes: device busy time against the host's clock
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_share(what, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        flash = sum(e.self_device_time_total for e in rows
+                    if "flash" in e.key) / 1e3
+        print(f"  {what}: {wall:.2f} ms wall under torch.profiler, device busy "
+              f"{busy:.2f} ms ({100 * busy / wall:.1f} %; idle "
+              f"{100 - 100 * busy / wall:.1f} %), flash kernel {flash:.3f} ms, "
+              f"{sum(e.count for e in rows)} device events", flush=True)
+
+    for t in (2048, 128):
+        device_share(f"prefill T={t}",
+                     lambda t=t: tr.prefill(cfg, params, tok0[:, :t]))
+    sched = eng.make_scheduler(lanes=SERVE_LANES, max_len=max_len)
+    for pr in prompts[:SERVE_LANES]:
+        sched.submit(pr, 32)
+    sched.step()                        # admits all four lanes
+    device_share(f"4 decode steps, {SERVE_LANES} lanes busy",
+                 lambda: [sched.step() for _ in range(4)])
+    del sched
+    return dict(cfg=cfg, params=params, tok0=tok0, counts=first["counts"],
+                first_token=int(first["toks"][0][0]))
 
 
 def main(argv=None):
@@ -118,6 +369,11 @@ def main(argv=None):
 
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
     from repro_torch.kernels.barrett import matmul_folded
+    from repro_torch.kernels.flash_attention import (
+        agreement,
+        flash_attention,
+        flash_attention_plain,
+    )
     from repro_torch.kernels.modmatmul import (
         k_splits,
         modmatmul,
@@ -144,6 +400,9 @@ def main(argv=None):
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # fp32 products are compared at 2e-5: keep them in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # ------------------------------------------------------------- build
@@ -230,6 +489,95 @@ def main(argv=None):
         del ab
         torch.cuda.empty_cache()
 
+    # ------------------------------- flash attention vs its plain version
+    def readings(a):
+        return (f"max |err| {a['max_abs_err']:.3e}, worst element "
+                f"{a['worst']:.3f} of its limit, rel. Frobenius "
+                f"{a['rel_frob']:.3e}")
+
+    def hold_flash(what, q, k, v, *, causal=True, q_offset=0, iters=0,
+                   library=False, controls=False):
+        """The kernel against its plain version on the same operands, within
+        ``agreement``'s limits; timed when ``iters``, with the SDPA yardstick
+        when ``library``; with ``controls``, two planted faults must fail
+        the same check."""
+        kw = dict(causal=causal, q_offset=q_offset)
+        got = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and got.dtype == q.dtype,
+                f"{what}: {tuple(got.shape)} {got.dtype}")
+        require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        agree = agreement(got, ref)
+        require(agree["ok"], f"{what}: kernel != plain ({readings(agree)})")
+        err = agree["max_abs_err"]
+        nbytes, flops, peak = attn_work(q, k, causal, q_offset)
+        rec = {"max_abs_err": err, "work": (nbytes, flops), "peak": peak}
+        print(f"  {what}: {readings(agree)}", flush=True)
+        if controls:
+            for fault, bad in planted_faults(q, k, v, ref, **kw):
+                a = agreement(bad, ref)
+                require(not a["ok"], f"{what}: the check accepts a planted "
+                        f"fault ({fault}: {readings(a)})")
+                print(f"    control, {fault}: rejected ({readings(a)})",
+                      flush=True)
+        note = ""
+        if iters:
+            rec["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                                iters)
+            rec["plain_ms"] = time_ms(
+                torch, lambda: flash_attention_plain(q, k, v, **kw), iters)
+            bms, by = bound(nbytes, flops, peak)
+            note = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+                    f" ms, bound {bms:.4f} ms ({by})")
+        if library:
+            lib = sdpa(q, k, v, causal).transpose(1, 2)
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            rec["library_ms"] = time_ms(torch, lambda: sdpa(q, k, v, causal),
+                                        iters)
+            note += (f", scaled_dot_product_attention {rec['library_ms']:.4f} ms"
+                     f" (max |diff| to plain {lib_err:.3e})")
+        if note:
+            print(f"    {note}", flush=True)
+        return rec
+
+    def flash_case(what, b, t, s, hq, hkv, d, dtype, **kw):
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        return hold_flash(what, draw(b, t, hq, d), draw(b, s, hkv, d),
+                          draw(b, s, hkv, d), **kw)
+
+    bf16 = torch.bfloat16
+    print("flash_attention kernel checks (llama3.2-1b prefill: Hq 32, Hkv 8, "
+          "D 64):", flush=True)
+    flash_rec = {}
+    for t, iters in ((2048, 20), (512, 50)):
+        flash_rec[t] = flash_case(
+            f"bf16 causal [1,{t},32,64] x [1,{t},8,64]", 1, t, t, N_HEADS,
+            N_KV, HEAD_DIM, bf16, iters=iters, library=True, controls=True)
+    flash_case("bf16 causal ragged T = S = 1000", 1, 1000, 1000, N_HEADS, N_KV,
+               HEAD_DIM, bf16)
+    flash_case("bf16 causal T = 128, S = 2048, q_offset = 1920", 1, 128, 2048,
+               N_HEADS, N_KV, HEAD_DIM, bf16, q_offset=1920)
+    flash_case("bf16 non-causal [2,300,32,64] x [2,700,8,64]", 2, 300, 700,
+               N_HEADS, N_KV, HEAD_DIM, bf16, causal=False)
+    flash_case("bf16 causal D = 128 [1,300,8,128] x [1,300,2,128]", 1, 300, 300,
+               8, 2, 128, bf16)
+    flash_case("bf16 causal D = 32 [2,77,4,32] x [2,130,4,32], q_offset = 53",
+               2, 77, 130, 4, 4, 32, bf16, q_offset=53)
+    fused = torch.randn((1, 700, N_HEADS + 2 * N_KV, HEAD_DIM + 1),
+                        generator=gen, device=dev).to(bf16)
+    hold_flash("bf16 causal, rows not 16-byte aligned (views of one fused "
+               "[1,700,48,65] tensor)", *fused[..., 1:].split(
+                   [N_HEADS, N_KV, N_KV], dim=2))
+    del fused
+    flash_case("fp32 causal [2,96,4,32] x [2,96,1,32]", 2, 96, 96, 4, 1, 32,
+               torch.float32)
+    flash_case("fp32 non-causal D = 128 [1,200,8,128] x [1,77,2,128]", 1, 200,
+               77, 8, 2, 128, torch.float32, causal=False)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- the main path
     spec = MPCSpec(s=2, t=2, z=2)
     m = choose_block(spec.s, spec.t, 1, D_MODEL, VOCAB)
@@ -256,7 +604,7 @@ def main(argv=None):
               f"launches {counts}", flush=True)
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
-                           "polyeval": 5 * MAIN_BLOCKS},
+                           "polyeval": 5 * MAIN_BLOCKS, "flash_attention": 0},
                 f"{what}: launch counts {counts}")
         return y, wall, counts
 
@@ -284,25 +632,40 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated()
     del y, y6, want
 
+    def hold_float(what, logits, h, w):
+        """A float call against the float64 product of its operands as the
+        field encodes them, ``round(x 2^f)`` (half to even), scaled back by
+        ``2^-2f``.  The products and sums are integers far below 2^53, so
+        float64 holds them exactly, and the field result is exact while the
+        sum stays inside (-p/2, p/2): the two must be equal, bit for bit,
+        and pick the same greedy token.  Returns that token."""
+        fld = spec.field
+        scale = float(fld.scale)
+        prod = torch.round(h * scale) @ torch.round(w * scale)
+        require(float(prod.abs().max()) < fld.half,
+                f"{what}: the fixed-point product leaves (-p/2, p/2)")
+        want = prod / scale ** 2
+        require(logits.shape == want.shape and bool(torch.isfinite(logits).all()),
+                f"{what}: logits malformed")
+        diff = float((logits - want).abs().max())
+        require(torch.equal(logits, want), f"{what}: != the float64 product of "
+                f"the fixed-point operands (max |diff| {diff:.3e})")
+        tok, want_tok = int(logits.argmax()), int(want.argmax())
+        require(tok == want_tok, f"{what}: greedy token {tok} != {want_tok}")
+        plain = h @ w
+        print(f"  {what}: equal to the float64 product of the fixed-point "
+              f"operands, greedy token {tok} in both; against the unrounded "
+              f"float64 product: max |diff| "
+              f"{float((logits - plain).abs().max()):.3e}, its greedy token "
+              f"{int(plain.argmax())}", flush=True)
+        return tok
+
     h = torch.randn((1, D_MODEL), generator=gen, device=dev, dtype=torch.float64)
     w = 0.02 * torch.randn((D_MODEL, VOCAB), generator=gen, device=dev,
                            dtype=torch.float64)
     logits, float_wall, _ = drive("float h ~ N(0,1), W ~ N(0,0.02)", sess, h, w)
-    ref = h @ w
-    # fixed-point bound: |round(x 2^f)/2^f - x| <= 2^-(f+1) per operand, so
-    # |err_j| <= 2^-(f+1) (sum_i |h_i| + sum_i |W_ij|) + K 2^-(2f+2)
-    f = spec.field.frac_bits
-    tol = (2.0 ** -(f + 1) * (h.abs().sum() + w.abs().sum(dim=0))
-           + D_MODEL * 2.0 ** -(2 * f + 2))
-    err = (logits - ref).abs()[0]
-    require(logits.shape == (1, VOCAB) and bool(torch.isfinite(logits).all()),
-            "float logits malformed")
-    require(bool((err <= tol).all()), f"float error {float(err.max())} beyond "
-            f"the fixed-point bound")
-    print(f"  float: max |err| {float(err.max()):.3e}, bound "
-          f"{float(tol.min()):.3e}..{float(tol.max()):.3e}; greedy token "
-          f"{int(logits.argmax())} vs plaintext {int(ref.argmax())}", flush=True)
-    del h, w, logits, ref
+    hold_float("float", logits, h, w)
+    del h, w, logits
 
     m31 = connect(MPCSpec(s=2, t=2, z=2, field=Field(P_MERSENNE31)))
     a31, b31 = rand(P_MERSENNE31, 1, D_MODEL), rand(P_MERSENNE31, D_MODEL, VOCAB)
@@ -349,13 +712,32 @@ def main(argv=None):
     torch.cuda.synchronize()
     tags_counts = launch_counts()
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
-                            "polyeval": 0}, f"tags stage launch counts {tags_counts}")
+                            "polyeval": 0, "flash_attention": 0},
+            f"tags stage launch counts {tags_counts}")
     tags_want = (12345 * modmatmul_plain(i_pts.reshape(spec.n_workers, col),
                                          rvec.reshape(col, 1), p=p)[:, 0]
                  + offsets) % p
     require(torch.equal(tags, tags_want), "tags stage != plain")
     print(f"tags stage on the main path's plan: equal to plain, launches "
           f"{tags_counts}", flush=True)
+    del a, b, i_pts, tags, tags_want
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ serving at full width
+    served = serve_phase(torch, np, dev, args.seed, hold_flash)
+    cfg, params = served["cfg"], served["params"]
+
+    # ------------------------------- the served model's lm_head under MPC
+    from repro_torch.models import transformer as tr
+
+    hidden, _ = tr.forward(cfg, params, served["tok0"])
+    h = hidden[0, -1:].double()                      # [1, 2048]
+    w = params.embed.T.double().contiguous()         # tied head [2048, 128256]
+    logits, _, _ = drive("served hidden state x tied head embed.T", sess, h, w)
+    hold_float("private lm_head on the served hidden state", logits, h, w)
+    print(f"  the served bf16 prefill's first token was {served['first_token']}",
+          flush=True)
+    del hidden, h, w, logits
 
     # ------------------------------------------------------------ report
 
@@ -386,6 +768,25 @@ def main(argv=None):
             "library_ms": None, "shape": shape, "p": p,
             "path": "tags stage" if name == "modmatmul" else "main path",
         })
+    fr = flash_rec[2048]
+    bms, by = bound(*fr["work"], fr["peak"])
+    small = flash_rec[512]
+    small_bound = bound(*small["work"], small["peak"])
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": served["counts"]["flash_attention"],
+        "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
+        "plain_ms": fr["plain_ms"], "bound_ms": bms, "bound_by": by,
+        "library_ms": fr["library_ms"],
+        "shape": "bf16 causal q [1,2048,32,64], k and v [1,2048,8,64]",
+        "path": "serve prefill",
+        "at_t512": {"ms": small["ms"], "plain_ms": small["plain_ms"],
+                    "bound_ms": small_bound[0], "bound_by": small_bound[1],
+                    "library_ms": small["library_ms"],
+                    "max_abs_err": small["max_abs_err"]},
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

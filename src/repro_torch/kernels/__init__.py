@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels for the mod-p products, with their plain twins.
+"""Hand-written CUDA kernels, with their plain twins.
 
 * :mod:`.barrett` — ``mod_p``, ``matmul_limbs``, ``matmul_folded``: the
   plain torch ops (the CPU path and the kernels' oracle);
 * :mod:`.modmatmul` — batched and single ``(A @ B) mod p``;
 * :mod:`.polyeval` — skinny-K ``(V @ T) mod p`` share evaluation;
+* :mod:`.flash_attention` — GQA softmax attention (the serve path's
+  prefill);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
   binding, at first use.
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from . import flash_attention as _flash_attention
 from . import modmatmul as _modmatmul
 from . import polyeval as _polyeval
 
@@ -21,6 +24,7 @@ WRAPPERS = {
     "modmatmul_batched": _modmatmul.modmatmul_batched,
     "modmatmul": _modmatmul.modmatmul,
     "polyeval": _polyeval.polyeval,
+    "flash_attention": _flash_attention.flash_attention,
 }
 
 

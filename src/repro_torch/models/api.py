@@ -1,0 +1,42 @@
+"""Unified model facade: one namespace per family with a common surface.
+
+    model = get_model(cfg)
+    params = model.init_params(cfg, seed, device=...)
+    hidden, aux = model.forward(cfg, params, tokens, embeds=...)
+    cache = model.init_cache(cfg, batch, max_len, device=...)
+    logits, cache = model.decode_step(cfg, params, cache, token, pos)
+
+Port of ``repro/models/api.py``.  The dense and vlm families are ported;
+the others raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import types
+
+from . import transformer
+from .config import ModelConfig
+
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "vlm": transformer,
+}
+
+_NOT_PORTED = {
+    "moe": "the MoE family (models/moe.py) comes after the RWKV-6 family "
+           "(ROADMAP queue 1, item 12)",
+    "ssm": "the RWKV-6 family (models/rwkv.py and the rwkv6 kernel) is the "
+           "next slice (ROADMAP queue 1, item 12; queue 2, item 6)",
+    "hybrid": "the jamba family (models/jamba.py, models/ssm.py) is not "
+              "ported yet (ROADMAP queue 1, item 12)",
+    "encdec": "the whisper family (models/whisper.py) is not ported yet "
+              "(ROADMAP queue 1, item 12)",
+}
+
+
+def get_model(cfg: ModelConfig) -> types.ModuleType:
+    try:
+        return _FAMILY_MODULES[cfg.family]
+    except KeyError:
+        if cfg.family in _NOT_PORTED:
+            raise NotImplementedError(_NOT_PORTED[cfg.family]) from None
+        raise ValueError(f"unknown family {cfg.family!r}") from None

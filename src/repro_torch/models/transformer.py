@@ -1,0 +1,246 @@
+"""Decoder-only LM, dense GQA and VLM-backbone families.
+
+Port of ``repro/models/transformer.py``; the functions keep the JAX names
+and signatures so each has an obvious counterpart.  Weights are
+:class:`Transformer` modules holding one :class:`Layer` per block (JAX
+stacks them ``[L, ...]`` for ``lax.scan``; the port loops over layers).
+Prefill attention runs the flash kernel on the card
+(:func:`~repro_torch.models.layers.attention_chunked`); decode attends over
+a contiguous or paged KV cache in plain torch, written in place.
+
+The MoE FFN (``models/moe.py``) is not ported yet: ``init_params`` (and
+``convert.params_from_numpy``) raise ``NotImplementedError`` for a config
+with ``moe``, so no MoE weights reach the other functions.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..mpc.field import generator
+from .config import ModelConfig
+from .layers import (
+    KVCache,
+    PagedKVCache,
+    attention_chunked,
+    decode_attention,
+    gqa_project,
+    paged_decode_attention,
+    rms_norm,
+    swiglu,
+)
+
+LAYER_KEYS = ("attn_norm", "w_q", "w_k", "w_v", "w_o", "ffn_norm", "w1", "w3",
+              "w2")
+MOE_TODO = ("the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue 1, "
+            "item 12, after the RWKV-6 family")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Layer(nn.Module):
+    """One block's weights, named as in the JAX ``params["layers"]`` tree;
+    ``layer["w_q"]`` reads like the JAX dict."""
+
+    def __init__(self, weights: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name in LAYER_KEYS:
+            self.register_parameter(name, _frozen(weights[name]))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+class Transformer(nn.Module):
+    """The whole model's weights: ``embed [Vp, D]``, ``layers``,
+    ``final_norm [D]`` and, when the embeddings are not tied,
+    ``lm_head [D, Vp]``."""
+
+    def __init__(self, embed: torch.Tensor, layers, final_norm: torch.Tensor,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = _frozen(embed)
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = _frozen(final_norm)
+        self.lm_head = None if lm_head is None else _frozen(lm_head)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# ------------------------------------------------------------------- init --
+def init_params(cfg: ModelConfig, key, *, device) -> Transformer:
+    """Random weights as the JAX ``init_params`` draws them (normal, scaled
+    by ``fan_in ** -0.5``; norms at 1), from ``key`` (an int seed or a
+    ``torch.Generator``) on ``device``.  Torch and JAX draw different
+    numbers; tests carry JAX's weights across with
+    :func:`~repro_torch.models.convert.params_from_numpy`."""
+    if cfg.moe is not None:
+        raise NotImplementedError(MOE_TODO)
+    dev = torch.device(device)
+    g = generator(key, dev)
+    dt = _dtype(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+
+    def mk(shape, scale_dim=d):
+        x = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+        return (x * scale_dim ** -0.5).to(dt)
+
+    def ones(n):
+        return torch.ones(n, dtype=dt, device=dev)
+
+    layers = [Layer({
+        "attn_norm": ones(d),
+        "w_q": mk((d, cfg.n_heads * hd)),
+        "w_k": mk((d, cfg.n_kv_heads * hd)),
+        "w_v": mk((d, cfg.n_kv_heads * hd)),
+        "w_o": mk((cfg.n_heads * hd, d), cfg.n_heads * hd),
+        "ffn_norm": ones(d),
+        "w1": mk((d, cfg.d_ff)),
+        "w3": mk((d, cfg.d_ff)),
+        "w2": mk((cfg.d_ff, d), cfg.d_ff),
+    }) for _ in range(cfg.n_layers)]
+    embed = mk((cfg.padded_vocab(), d))
+    lm_head = None if cfg.tie_embeddings else mk((d, cfg.padded_vocab()))
+    return Transformer(embed, layers, ones(d), lm_head)
+
+
+# ---------------------------------------------------------------- forward --
+def _layer(cfg: ModelConfig, x, p: Layer, positions, collect_kv: bool = False):
+    """One transformer block (train/prefill path)."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = gqa_project(h, p, cfg, positions=positions)
+    attn = attention_chunked(q, k, v, causal=True)
+    b, t, _, _ = attn.shape
+    x = x + attn.reshape(b, t, -1) @ p["w_o"]
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    x = x + swiglu(h, p["w1"], p["w3"], p["w2"])
+    return x, ((k, v) if collect_kv else None)
+
+
+def _embed(params: Transformer, tokens, embeds):
+    x = params.embed[tokens]                          # [B, T_text, D]
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    return x, positions
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, T_text] int; embeds: [B, T_front, D] (vlm stub).
+
+    Returns (hidden [B, T, D], aux loss scalar: 0 for the dense FFN)."""
+    x, positions = _embed(params, tokens, embeds)
+    for lp in params.layers:
+        x, _ = _layer(cfg, x, lp, positions)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None):
+    """Serving prefill: last-position logits + a filled KV cache
+    ``[L, B, T, Hkv, D]``."""
+    x, positions = _embed(params, tokens, embeds)
+    ks, vs = [], []
+    for lp in params.layers:
+        x, (k, v) = _layer(cfg, x, lp, positions, collect_kv=True)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = logits_fn(cfg, params, x[:, -1:])
+    cache = KVCache(k=torch.stack(ks), v=torch.stack(vs), length=x.shape[1])
+    return logits, cache
+
+
+def logits_fn(cfg: ModelConfig, params: Transformer,
+              hidden: torch.Tensor) -> torch.Tensor:
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    out = hidden @ head.to(hidden.dtype)
+    vp = out.shape[-1]
+    if vp != cfg.vocab:  # mask padded vocab ids
+        pad = torch.arange(vp, device=out.device) >= cfg.vocab
+        out = out.masked_fill(pad, -1e30)
+    return out
+
+
+# ----------------------------------------------------------------- decode --
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device) -> KVCache:
+    """Stacked ``[L, B, S, Hkv, hd]`` cache on ``device``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=_dtype(cfg), device=device),
+                   v=torch.zeros(shape, dtype=_dtype(cfg), device=device),
+                   length=0)
+
+
+def _decode_layers(cfg: ModelConfig, params: Transformer, token, positions,
+                   attend):
+    """The decode step's body over every layer; ``attend(l, q, k_new,
+    v_new)`` writes layer ``l``'s cache and returns its attention."""
+    x = params.embed[token]                           # [B, 1, D]
+    b = x.shape[0]
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k_new, v_new = gqa_project(h, lp, cfg, positions=positions)
+        x = x + attend(li, q, k_new, v_new).reshape(b, 1, -1) @ lp["w_o"]
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return logits_fn(cfg, params, x)
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, cache: KVCache,
+                token: torch.Tensor, pos: int):
+    """One decode step.  token: [B, 1] int; pos: int (slot to write).
+
+    Returns (logits [B, 1, Vp], cache); the cache is updated in place."""
+    b = token.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=token.device)
+
+    def attend(li, q, k_new, v_new):
+        layer = KVCache(k=cache.k[li], v=cache.v[li], length=cache.length)
+        out, _ = decode_attention(q, layer, k_new, v_new, pos=pos)
+        return out
+
+    logits = _decode_layers(cfg, params, token, positions, attend)
+    return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int, *,
+                     device) -> PagedKVCache:
+    """Stacked ``[L, NB, BS, Hkv, hd]`` block pool on ``device``."""
+    return PagedKVCache.init(n_blocks, block_size, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, _dtype(cfg),
+                             leading=(cfg.n_layers,), device=device)
+
+
+def decode_step_paged(cfg: ModelConfig, params: Transformer,
+                      pool: PagedKVCache, tables: torch.Tensor,
+                      token: torch.Tensor, pos: torch.Tensor):
+    """One decode step over the paged pool, the continuous-batching twin of
+    :func:`decode_step`.  token: [B, 1] int; tables: [B, MB] int; pos: [B]
+    int per-lane positions.
+
+    Returns (logits [B, 1, Vp], pool); the pool is updated in place."""
+
+    def attend(li, q, k_new, v_new):
+        out, _, _ = paged_decode_attention(q, pool.k[li], pool.v[li], tables,
+                                           k_new, v_new, pos=pos)
+        return out
+
+    logits = _decode_layers(cfg, params, token, pos[:, None], attend)
+    return logits, pool

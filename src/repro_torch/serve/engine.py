@@ -1,0 +1,101 @@
+"""Batched serving engine over the continuous-batching scheduler.
+
+Port of ``repro/serve/engine.py``.  ``Engine.generate`` keeps the seed
+contract, ``[B, T] -> [B, max_new]`` greedy continuation, and routes it
+through the paged :class:`~repro_torch.serve.scheduler.ServeScheduler`
+(one lane per row, pool sized to the call).  ``_generate_legacy``, the
+one-shot loop over a static KV slab, stays as the exactness oracle; it
+also serves the families without a paged decode path once they are ported
+(ROADMAP queue 1, item 12).
+
+Long-lived serving should use :meth:`Engine.make_scheduler` directly:
+submit requests as they arrive, call ``step``/``run``, and let paging and
+admission do their work across requests of different lengths.
+
+The engine runs on the card unless it is given ``device="cpu"``; with no
+card and no device it raises.  The weights must already be on that
+device.  The reference's ``jit`` caches and donated pool buffer have no
+counterpart: torch runs eagerly, and the caches are written in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.api import get_model
+from ..models.config import ModelConfig
+from ..models.layers import KVCache
+from ..mpc.field import resolve_device
+from .scheduler import ServeScheduler, check_params_device
+
+
+def _pad_cache(cache: KVCache, extra: int) -> KVCache:
+    """Grow a stacked ``[..., S, H, D]`` cache by ``extra`` slots of S."""
+    def pad(x):
+        return F.pad(x, (0, 0, 0, 0, 0, extra))
+
+    return KVCache(k=pad(cache.k), v=pad(cache.v), length=cache.length)
+
+
+class Engine:
+    """Greedy generation for one model on one device."""
+
+    def __init__(self, cfg: ModelConfig, params, *, device=None,
+                 block_size: int = 16):
+        self.cfg, self.params, self.block_size = cfg, params, block_size
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
+        self.model = get_model(cfg)
+
+    def make_scheduler(self, *, lanes: int = 4,
+                       n_blocks: Optional[int] = None,
+                       max_len: int = 512) -> ServeScheduler:
+        """A continuous-batching scheduler for this engine's model."""
+        return ServeScheduler(self.cfg, self.params, lanes=lanes,
+                              block_size=self.block_size, n_blocks=n_blocks,
+                              max_len=max_len, device=self.device)
+
+    def _tokens(self, prompt) -> torch.Tensor:
+        return torch.as_tensor(prompt, dtype=torch.int64, device=self.device)
+
+    def generate(self, prompt, max_new: int,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """prompt: [B, T] int -> [B, max_new] greedy continuation (int64,
+        on the engine's device)."""
+        prompt = self._tokens(prompt)
+        b = prompt.shape[0]
+        if max_new < 1:  # honor the [B, max_new] contract without a prefill
+            return torch.zeros((b, 0), dtype=torch.int64, device=self.device)
+        need = prompt.shape[1] + (
+            embeds.shape[1] if embeds is not None else 0) + max_new - 1
+        sched = self.make_scheduler(lanes=b, max_len=need)
+        rids = [sched.submit(prompt[i:i + 1], max_new,
+                             embeds=None if embeds is None
+                             else embeds[i:i + 1])
+                for i in range(b)]
+        done = sched.run()
+        return torch.stack([torch.from_numpy(done[r]) for r in rids]).to(
+            self.device)
+
+    def _generate_legacy(self, prompt, max_new: int,
+                         embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Seed one-shot loop: static KV slab, lock-step decode."""
+        prompt = self._tokens(prompt)
+        logits, cache = self.model.prefill(self.cfg, self.params, prompt,
+                                           embeds=embeds)
+        # the prefill cache already holds the prompt (+ embeds) positions
+        # and the first token comes straight from the prefill logits, so
+        # only the max_new - 1 decode steps below need cache slots
+        # (positions base .. base + max_new - 2)
+        cache = _pad_cache(cache, max_new - 1)
+        tok = logits[:, -1:].argmax(dim=-1)
+        base = prompt.shape[1] + (embeds.shape[1] if embeds is not None else 0)
+        out = [tok]
+        for i in range(max_new - 1):
+            logits, cache = self.model.decode_step(self.cfg, self.params,
+                                                   cache, tok, base + i)
+            tok = logits[:, -1:].argmax(dim=-1)
+            out.append(tok)
+        return torch.cat(out, dim=1)

@@ -106,9 +106,14 @@ def test_fold_in_and_generators():
 
 
 # ------------------------------------------------------------------- core
+CONFIG_FILES = ["models/config.py"] + sorted(
+    f"configs/{p.name}" for p in (ROOT / "src/repro/configs").glob("*.py"))
+
+
 @pytest.mark.parametrize("name", ["core/__init__.py", "core/age.py",
                                   "core/worker_counts.py",
-                                  "core/overheads.py", "mpc/errors.py"])
+                                  "core/overheads.py", "mpc/errors.py"]
+                         + CONFIG_FILES)
 def test_framework_free_copies_are_verbatim(name):
     orig = (ROOT / "src/repro" / name).read_bytes()
     port = (ROOT / "src/repro_torch" / name).read_bytes()

@@ -6,15 +6,27 @@ it runs where only the port is installed::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerance is 0: every comparison is ``torch.equal`` on field elements."""
+Mod-p comparisons are ``torch.equal`` on field elements (tolerance 0).
+Attention is held within ``flash_attention.agreement``'s limits: 2e-5 in
+fp32; in bf16 two ULP of each element (2^-6 of |ref| plus its row's rms)
+and 2^-8 in relative Frobenius norm.  The served model's logits are held
+at 1e-4 against the same model on the CPU (sums in another order)."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import (
+    agreement,
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.modmatmul import modmatmul, modmatmul_batched, modmatmul_plain
 from repro_torch.kernels.polyeval import polyeval, polyeval_plain
+from repro_torch.models import transformer as tr
 from repro_torch.mpc import P_DEFAULT, P_MERSENNE31, Field, MPCSpec, connect
+from repro_torch.serve import Engine
 
 PRIMES = [P_DEFAULT, P_MERSENNE31]
 
@@ -52,7 +64,8 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts == {"modmatmul_batched": len(shapes) + 1,
-                      "modmatmul": len(shapes), "polyeval": 0}
+                      "modmatmul": len(shapes), "polyeval": 0,
+                      "flash_attention": 0}
 
 
 @pytest.mark.gpu
@@ -95,4 +108,108 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         connect(spec, device="cpu", mode=mode).matmul(a, b, encoded=True).numpy(),
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
-                      "polyeval": 5 * blocks}
+                      "polyeval": 5 * blocks, "flash_attention": 0}
+
+
+# (B, T, S, Hq, Hkv, D, dtype, causal, q_offset)
+FLASH_CASES = [
+    (1, 512, 512, 32, 8, 64, torch.bfloat16, True, 0),     # serve prefill
+    (1, 1000, 1000, 32, 8, 64, torch.bfloat16, True, 0),   # ragged T = S
+    (1, 128, 2048, 32, 8, 64, torch.bfloat16, True, 1920),  # T != S
+    (2, 300, 700, 32, 8, 64, torch.bfloat16, False, 0),    # non-causal
+    (1, 300, 300, 8, 2, 128, torch.bfloat16, True, 0),     # D = 128
+    (2, 77, 130, 4, 4, 32, torch.bfloat16, True, 53),      # D = 32, ragged
+    (2, 96, 96, 4, 1, 32, torch.float32, True, 0),
+    (1, 200, 77, 8, 2, 128, torch.float32, False, 0),
+    (3, 37, 37, 6, 3, 32, torch.float32, True, 0),         # odd everything
+    (1, 8, 8, 2, 1, 64, torch.float32, True, -3),          # rows see no key
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_gpu_flash_kernel_equals_plain(cuda, case):
+    b, t, s, hq, hkv, d, dtype, causal, q_offset = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda)
+    g.manual_seed(t + s + d)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    # q, k and v as views into one fused projection: strided, not copied
+    fused = draw(b, t, hq + 2 * hkv, d) if t == s else None
+    if fused is not None:
+        q, k, v = fused.split([hq, hkv, hkv], dim=2)
+        assert not q.is_contiguous()
+    else:
+        q, k, v = draw(b, t, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d)
+    reset_launch_counts()
+    plain0 = flash_attention_plain.calls
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    assert flash_attention_plain.calls == plain0
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == (b, t, hq, d)
+    assert agreement(got, want)["ok"], agreement(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_gpu_flash_bf16_unaligned_operands(cuda, d):
+    """Operands whose rows are not 16-byte aligned take the kernel's
+    element-wise loads; the result is the same."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    big = torch.randn((2, 150, 12, d + 1), generator=g, device=cuda)
+    big = big.to(torch.bfloat16)
+    q, k, v = big[:, :, :8, 1:], big[:, :, 8:10, 1:], big[:, :, 10:, 1:]
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    assert agreement(got, want)["ok"], agreement(got, want)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(x, x, x)
+    y = torch.zeros((1, 4, 64, 2), device=cuda).transpose(2, 3)   # D strided
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention(y, y, y)
+
+
+def _reduced_on(device):
+    cfg = reduced(get_config("llama3.2-1b"))
+    return cfg, tr.init_params(cfg, 0, device="cpu").to(device)
+
+
+@pytest.mark.gpu
+def test_gpu_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _reduced_on(cuda)
+    _, cpu_params = _reduced_on("cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 70)))
+    reset_launch_counts()
+    plain0 = flash_attention_plain.calls
+    logits, cache = tr.prefill(cfg, params, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    assert flash_attention_plain.calls == plain0
+    want, want_cache = tr.prefill(cfg, cpu_params, toks)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(cache.k.cpu(), want_cache.k, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_paged_serving_equals_the_contiguous_loop(cuda):
+    cfg, params = _reduced_on(cuda)
+    eng = Engine(cfg, params, block_size=4)
+    assert eng.device.type == "cuda"
+    rng = np.random.default_rng(2)
+    for t in (3, 4, 5, 9, 33):
+        prompt = rng.integers(0, cfg.vocab, (2, t))
+        got = eng.generate(prompt, 6)
+        assert got.device.type == "cuda" and got.shape == (2, 6)
+        assert torch.equal(got, eng._generate_legacy(prompt, 6))

@@ -16,6 +16,7 @@ from repro.kernels.modmatmul import modmatmul_batched as j_modmatmul_batched
 from repro.kernels.polyeval import polyeval as j_polyeval
 from repro.mpc.field import P_DEFAULT, P_MERSENNE31, Field
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.modmatmul import (
     MAX_GRID_Z,
     MIN_SPLIT_K,
@@ -144,8 +145,10 @@ def test_cpu_tensors_launch_nothing():
     modmatmul_batched(a, a, p=P_DEFAULT)
     modmatmul(a[0], a[0], p=P_DEFAULT)
     polyeval(a[0], a[0], p=P_DEFAULT)
+    x = torch.ones((1, 4, 2, 32))
+    flash_attention(x, x[:, :, :1], x[:, :, :1])
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
-                               "polyeval": 0}
+                               "polyeval": 0, "flash_attention": 0}
 
 
 # ---------------------------------------------------------------- polyeval
