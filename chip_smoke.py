@@ -42,7 +42,22 @@
    the first 2048-token request times the tied head ``embed.T`` through
    the MPC session, equal to the float64 product of the fixed-point
    operands, with the same greedy token.
-9. Prints one ``{"kernels": [...]}`` line and, last, the
+9. Serves rwkv6-1.6b at full width and depth (24 layers, d 2048, bf16
+   weights drawn from ``--seed``, 1.58 B parameters).  First holds the
+   WKV-6 kernel against its plain version within ``rwkv6.agreement``'s
+   limits (1e-4 of each element's |ref| plus its row's rms, 1e-5 in
+   relative Frobenius norm; output and final state) at ``[4,2048,32,64]``
+   and ``[1,1000,32,64]``, bf16 and fp32, w around -6 and 0, with and
+   without a start state; shows that three planted faults fail that check
+   and times the kernel and the plain version.  Then runs
+   ``Engine.generate`` on ``[4, 2048]`` (32 new tokens) and ``[1, 1000]``
+   (16), twice, weights drawn anew: 24 kernel launches per prefill, no
+   plain WKV call, the same tokens both times.  Prints prefill and decode
+   times against the weight-read floor, peak memory and the device busy
+   share; holds the kernel on layer 0's real operands; and checks in fp32
+   that decoding one step from a prefill of T - 1 tokens gives the logits
+   and greedy tokens of a prefill of T, which a zeroed WKV state fails.
+10. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero.
@@ -72,6 +87,15 @@ N_LAYERS, N_HEADS, N_KV, HEAD_DIM = 16, 32, 8, 64   # llama3.2-1b attention
 SERVE_PROMPTS = (2048, 128, 1024, 512, 2048, 512, 128, 1024)
 SERVE_MAX_NEW = (32, 8, 24, 16, 8, 32, 16, 24)
 SERVE_LANES, SERVE_BLOCK = 4, 16
+
+
+# the rwkv phase: rwkv6-1.6b, 24 layers, d 2048 = 32 heads of 64; two
+# Engine.generate calls of (batch, prompt tokens, max_new)
+RWKV_LAYERS, RWKV_HEADS, RWKV_HEAD = 24, 32, 64
+RWKV_CALLS = ((4, 2048, 32), (1, 1000, 16))
+# decode from a prefill of T tokens against a prefill of T + 1, in fp32:
+# the next-token logits may differ by this share of their rms
+STATE_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -127,6 +151,294 @@ def sdpa(q, k, v, causal):
                                           enable_gqa=True)
 
 
+def wkv_work(b, t, h, elem_bytes, state_in):
+    """(bytes, sequential fp32 flops) of one WKV call at K = V = 64: r, k,
+    v, w and u read once (and state0 when given), out and the final state
+    written once in fp32; about 7 K V flops per (b, t, h) in the sequential
+    form."""
+    d, kv = RWKV_HEAD, RWKV_HEAD * RWKV_HEAD
+    nbytes = (4 * b * t * h * d * elem_bytes + 4 * h * d + 4 * b * t * h * d
+              + 4 * b * h * kv * (2 if state_in else 1))
+    return nbytes, 7 * kv * b * t * h
+
+
+def wkv_faults(r, k, v, w, u):
+    """Three wrong results for the check against the plain version to
+    reject, each made with the plain version: the bonus ``u`` set to zero;
+    the output read from ``S_t`` instead of ``S_{t-1}`` (``r_t . (S_t +
+    diag(u) k_t^T v_t)`` = the plain output of ``r * decay`` with no bonus,
+    plus ``v_t (r_t . (1 + u) k_t)``); and the final state without the
+    last 64 steps."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import rwkv6_plain
+
+    yield "out: u = 0", "out", rwkv6_plain(r, k, v, w, torch.zeros_like(u))[0]
+    rf, kf, vf, uf = r.float(), k.float(), v.float(), u.float()
+    decay = torch.exp(-torch.exp(w.float()))
+    after, _ = rwkv6_plain(rf * decay, kf, vf, w, torch.zeros_like(uf))
+    bonus = torch.einsum("bthk,hk,bthk->bth", rf, 1 + uf, kf)
+    yield "out: read from S_t", "out", after + vf * bonus[..., None]
+    yield "state: last 64 steps dropped", "state", rwkv6_plain(
+        r[:, :-64], k[:, :-64], v[:, :-64], w[:, :-64], u)[1]
+
+
+def rwkv_phase(torch, np, dev, seed, gen):
+    """Serve rwkv6-1.6b at full width and depth on the card, twice from one
+    seed, with the WKV kernel held against its plain version.
+
+    Returns the kernel's record for the ``kernels`` line."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rwkv6 import agreement, rwkv6, rwkv6_plain
+    from repro_torch.models import rwkv as rw
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serve import Engine
+
+    cfg = get_config("rwkv6-1.6b")
+    require((cfg.family, cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab,
+             cfg.dtype) == ("ssm", RWKV_LAYERS, RWKV_HEADS * RWKV_HEAD, 7168,
+                            65536, "bfloat16"),
+            f"rwkv6-1.6b config changed: {cfg}")
+
+    def hold(what, ops, *, state0=None, controls=False):
+        """The kernel against its plain version on ``ops`` (r, k, v, w, u):
+        output and final state within ``agreement``'s limits; with
+        ``controls``, three planted faults must fail the same check."""
+        out, state = rwkv6(*ops, state0=state0)
+        want_out, want_state = rwkv6_plain(*ops, state0=state0)
+        torch.cuda.synchronize()
+        require(out.shape == want_out.shape and state.shape == want_state.shape,
+                f"{what}: {tuple(out.shape)} {tuple(state.shape)}")
+        require(bool(torch.isfinite(out).all() and torch.isfinite(state).all()),
+                f"{what}: non-finite result")
+        a_out, a_state = agreement(out, want_out), agreement(state, want_state)
+        require(a_out["ok"] and a_state["ok"], f"{what}: kernel != plain "
+                f"(out {readings(a_out)}, worst at {a_out['worst_at']}; state "
+                f"{readings(a_state)}, worst at {a_state['worst_at']})")
+        print(f"  {what}: out {readings(a_out)}; state {readings(a_state)}",
+              flush=True)
+        if controls:
+            refs = {"out": want_out, "state": want_state}
+            for fault, which, bad in wkv_faults(*ops):
+                a = agreement(bad, refs[which])
+                require(not a["ok"], f"{what}: the check accepts a planted "
+                        f"fault ({fault}: {readings(a)})")
+                print(f"    control, {fault}: rejected ({readings(a)}; "
+                      f"{a['rel_frob'] / 1e-5:.3g} times the Frobenius limit)",
+                      flush=True)
+        return max(a_out["max_abs_err"], a_state["max_abs_err"])
+
+    def draw(b, t, dtype, w_mean):
+        shape = (b, t, RWKV_HEADS, RWKV_HEAD)
+        r, k, v, w = (torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(4))
+        u = torch.randn((RWKV_HEADS, RWKV_HEAD), generator=gen, device=dev)
+        return tuple(x.to(dtype) for x in (r, k, v, w + w_mean)) + (u,)
+
+    # ------------------------------------------ the kernel on random operands
+    print("rwkv6 kernel checks (rwkv6-1.6b: H 32, K = V = 64; w ~ N(-6, 1) as "
+          "w_base gives, or N(0, 1): decay e^-1 per step):", flush=True)
+    rec = {}
+    for b, t, _ in RWKV_CALLS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for w_mean in (-6.0, 0.0):
+                for with_s0 in (False, True):
+                    ops = draw(b, t, dtype, w_mean)
+                    s0 = (torch.randn((b, RWKV_HEADS, RWKV_HEAD, RWKV_HEAD),
+                                      generator=gen, device=dev)
+                          if with_s0 else None)
+                    name = str(dtype).split(".")[-1]
+                    served = dtype == torch.bfloat16 and w_mean == -6.0
+                    err = hold(f"[{b},{t},32,64] {name}, w ~ N({w_mean:g}, 1), "
+                               f"{'state0' if with_s0 else 'zero state'}",
+                               ops, state0=s0,
+                               controls=served and not with_s0)
+                    if served and not with_s0:
+                        nbytes, flops = wkv_work(b, t, RWKV_HEADS, 2, False)
+                        rec[(b, t)] = {
+                            "max_abs_err": err,
+                            "ms": time_ms(torch, lambda: rwkv6(*ops), 20),
+                            "plain_ms": time_ms(torch, lambda: rwkv6_plain(*ops),
+                                                1),
+                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                            "fp32_ops_ms": flops / FP32_OPS_PER_S * 1e3}
+                        r = rec[(b, t)]
+                        print(f"    kernel {r['ms']:.4f} ms, plain "
+                              f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f}"
+                              f" ms (bytes: {nbytes / 1e6:.1f} MB); the "
+                              f"sequential form's {flops / 1e9:.2f} GFLOP take "
+                              f"{r['fp32_ops_ms']:.4f} ms at the fp32 peak",
+                              flush=True)
+                    del ops, s0
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- serving, twice from a seed
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, (b, t)) for b, t, _ in RWKV_CALLS]
+
+    def serve_once(what):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()     # earlier phases' tensors
+        t0 = time.perf_counter()
+        params = rw.init_params(cfg, seed, device=dev)
+        torch.cuda.synchronize()
+        nbytes = sum(x.numel() * x.element_size() for x in params.parameters())
+        draw_s = time.perf_counter() - t0
+        eng = Engine(cfg, params)
+        require(eng.device.type == "cuda" and not eng._paged,
+                f"{what}: engine on {eng.device}, paged {eng._paged}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain0 = rwkv6_plain.calls
+        reset_launch_counts()
+        toks, walls = [], []
+        for i, (pr, (b, t, n)) in enumerate(zip(prompts, RWKV_CALLS,
+                                                strict=True)):
+            t0 = time.perf_counter()
+            out = eng.generate(pr, n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = launch_counts()["rwkv6"]
+            require(got == cfg.n_layers * (i + 1),
+                    f"{what}: {got} rwkv6 launches after {i + 1} prefills")
+            out = out.cpu().numpy()
+            require(out.shape == (b, n), f"{what}: tokens {out.shape}")
+            require(bool(((out >= 0) & (out < cfg.vocab)).all()),
+                    f"{what}: token outside the vocabulary")
+            toks.append(out)
+        counts = launch_counts()
+        plain = rwkv6_plain.calls - plain0
+        peak = torch.cuda.max_memory_allocated()
+        require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
+                           "polyeval": 0, "flash_attention": 0,
+                           "rwkv6": cfg.n_layers * len(RWKV_CALLS)},
+                f"{what}: launch counts {counts}")
+        require(plain == 0, f"{what}: {plain} plain WKV calls on the card")
+        print(f"  {what}: weights drawn in {draw_s:.2f} s; generate "
+              + ", ".join(f"[{b},{t}] + {n}: {w * 1e3:.1f} ms wall"
+                          for (b, t, n), w in zip(RWKV_CALLS, walls,
+                                                  strict=True))
+              + f"; launches {counts}, plain WKV calls {plain}; peak memory "
+              f"{peak / 2**30:.3f} GiB, of which {before / 2**30:.3f} GiB was "
+              f"held before the weights were drawn", flush=True)
+        return params, toks, counts, nbytes
+
+    print(f"rwkv serve: {cfg.name} at its published config ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {rw.n_heads(cfg)} heads of {rw.HEAD_K}, ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), weights drawn from seed "
+          f"{seed}; Engine.generate {list(RWKV_CALLS)} (batch, prompt, max_new)",
+          flush=True)
+    params, first, counts, nbytes = serve_once("run 1")
+    del params
+    torch.cuda.empty_cache()
+    params, second, _, _ = serve_once("run 2 (weights drawn again)")
+    require(all(np.array_equal(a, b) for a, b in zip(first, second, strict=True)),
+            "rwkv serve: a second run from the same seed gave other tokens")
+    print(f"  run 2 tokens equal run 1's; {nbytes / 1e9:.3f} GB of weights "
+          f"({sum(x.numel() for x in params.parameters()) / 1e9:.3f} B "
+          f"parameters)", flush=True)
+
+    # time to first token, and decode steps from the prefill's state
+    floor = nbytes / HBM_BYTES_PER_S * 1e3
+    for pr, (b, t, _) in zip(prompts, RWKV_CALLS, strict=True):
+        tok = torch.as_tensor(pr, device=dev)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = rw.prefill(cfg, params, tok)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        nxt = logits[:, -1:].argmax(-1)
+        steps = []
+        for i in range(8):
+            t0 = time.perf_counter()
+            logits, cache = rw.decode_step(cfg, params, cache, nxt, t + i)
+            nxt = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        print(f"  [{b},{t}]: prefill {min(runs):.2f} ms (host clock around a "
+              f"synchronised call, best of 3); decode {sum(steps) / 8:.2f} ms "
+              f"mean, {min(steps):.2f} ms min per step over 8 steps = "
+              f"{b * 8e3 / sum(steps):.1f} tokens/s; the weight-read floor is "
+              f"{floor:.3f} ms per step ({sum(steps) / 8 / floor:.1f}x)",
+              flush=True)
+        del logits, cache
+    tok0 = torch.as_tensor(prompts[0], device=dev)
+    device_share(torch, f"prefill [{RWKV_CALLS[0][0]},{RWKV_CALLS[0][1]}]",
+                 lambda: rw.prefill(cfg, params, tok0), "wkv")
+    _, cache = rw.prefill(cfg, params, tok0)
+    nxt = tok0[:, -1:]
+    device_share(torch, f"4 decode steps at batch {RWKV_CALLS[0][0]}",
+                 lambda: [rw.decode_step(cfg, params, cache, nxt, 0)
+                          for _ in range(4)], "wkv")
+    del cache
+
+    # the kernel on the r, k, v, w, u that layer 0 makes of the served prompt
+    lp = params.layers[0]
+    x = params.embed[tok0]
+    h = rms_norm(x, lp["tm_norm"], cfg.norm_eps)
+    r, k, v, w, _ = rw._time_mix_inputs(cfg, h, torch.zeros_like(h[:, 0]), lp)
+    hold(f"layer 0's r, k, v, w, u of the served [{tok0.shape[0]},"
+         f"{tok0.shape[1]}] prompt (bf16)", (r, k, v, w, lp["u_bonus"]),
+         controls=True)
+    del x, h, r, k, v, w
+
+    # the state prefill hands to decode: decode one step from a prefill of
+    # T - 1 tokens against a prefill of all T, in fp32 (a copy of the served
+    # weights) so that bf16 rounding does not hide a fault; a zeroed WKV
+    # state must fail the same check
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = copy.deepcopy(params).float()
+    del params
+    torch.cuda.empty_cache()
+    want, _ = rw.prefill(cfg32, p32, tok0)
+
+    def from_state(what, zero):
+        _, cache = rw.prefill(cfg32, p32, tok0[:, :-1])
+        if zero:
+            cache.wkv.zero_()
+        got, _ = rw.decode_step(cfg32, p32, cache, tok0[:, -1:],
+                                tok0.shape[1] - 1)
+        rms = float(want.float().pow(2).mean().sqrt())
+        diff = float((got - want).abs().max())
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        print(f"  {what}: next-token logits max |diff| {diff:.3e} = "
+              f"{diff / rms:.3e} of their rms (limit {STATE_TOL:g}); greedy "
+              f"tokens {'equal' if same else 'differ'}", flush=True)
+        return diff <= STATE_TOL * rms and same
+
+    require(from_state(f"decode from a prefill of {tok0.shape[1] - 1} tokens "
+                       f"vs a prefill of {tok0.shape[1]} (fp32)", False),
+            "the state handed to decode disagrees with a longer prefill")
+    require(not from_state("control, decode from a zeroed WKV state", True),
+            "the state check accepts a zeroed WKV state")
+    del p32, want
+    torch.cuda.empty_cache()
+
+    served = rec[RWKV_CALLS[0][:2]]
+    small = rec[RWKV_CALLS[1][:2]]
+    b, t, _ = RWKV_CALLS[0]
+    return {
+        "name": "rwkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:27",
+        "launches": counts["rwkv6"],
+        "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+        "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "fp32_ops_ms": served["fp32_ops_ms"],
+        "shape": f"bf16 r, k, v, w [{b},{t},32,64], fp32 out and state",
+        "path": "rwkv serve prefill",
+        "at_1x1000": {key: small[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+    }
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -145,6 +457,13 @@ def planted_faults(q, k, v, ref, *, causal, q_offset):
                                  q_offset=q_offset + t - tile)
     yield (f"last {tile} rows miss the last {tile} keys",
            torch.cat([ref[:, :t - tile], tail], dim=1))
+
+
+def readings(a):
+    """One line of an ``agreement`` record."""
+    return (f"max |err| {a['max_abs_err']:.3e}, worst element "
+            f"{a['worst']:.3f} of its limit, rel. Frobenius "
+            f"{a['rel_frob']:.3e}")
 
 
 def time_ms(torch, fn, iters):
@@ -167,7 +486,8 @@ def ptxas_lines(log):
     out, name = [], "?"
     for line in log.splitlines():
         entry = re.search(
-            r"\d((?:[a-z]+_)*kernel)I?((?:Li\d+E|f|13__nv_bfloat16)*)", line)
+            r"\d((?:[a-z]+\d*_)*kernel)I?((?:Li\d+E|f|13__nv_bfloat16)*)",
+            line)
         if entry and "Compiling entry" in line:
             args = [a or ("float" if f else "bf16") for a, f, _ in
                     re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)", entry.group(2))]
@@ -175,6 +495,29 @@ def ptxas_lines(log):
         elif "Used" in line or "spill" in line:
             out.append(f"  {name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def device_share(torch, what, fn, kernel):
+    """Device busy time of ``fn()`` under ``torch.profiler`` against the
+    host's clock around it, and the time of the device events whose name
+    holds ``kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    own = sum(e.self_device_time_total for e in rows if kernel in e.key) / 1e3
+    print(f"  {what}: {wall:.2f} ms wall under torch.profiler, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f} %; idle "
+          f"{100 - 100 * busy / wall:.1f} %), {kernel} kernel {own:.3f} ms, "
+          f"{sum(e.count for e in rows)} device events", flush=True)
 
 
 def serve_phase(torch, np, dev, seed, hold_flash):
@@ -246,7 +589,8 @@ def serve_phase(torch, np, dev, seed, hold_flash):
                 f"{what}: no request was admitted mid-stream")
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0,
-                           "flash_attention": cfg.n_layers * prefills},
+                           "flash_attention": cfg.n_layers * prefills,
+                           "rwkv6": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
         require(sched.alloc.used_blocks() == 0, f"{what}: blocks still held")
@@ -318,35 +662,15 @@ def serve_phase(torch, np, dev, seed, hold_flash):
     del q, k, v, h
 
     # where a step's time goes: device busy time against the host's clock
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_share(what, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")]
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        flash = sum(e.self_device_time_total for e in rows
-                    if "flash" in e.key) / 1e3
-        print(f"  {what}: {wall:.2f} ms wall under torch.profiler, device busy "
-              f"{busy:.2f} ms ({100 * busy / wall:.1f} %; idle "
-              f"{100 - 100 * busy / wall:.1f} %), flash kernel {flash:.3f} ms, "
-              f"{sum(e.count for e in rows)} device events", flush=True)
-
     for t in (2048, 128):
-        device_share(f"prefill T={t}",
-                     lambda t=t: tr.prefill(cfg, params, tok0[:, :t]))
+        device_share(torch, f"prefill T={t}",
+                     lambda t=t: tr.prefill(cfg, params, tok0[:, :t]), "flash")
     sched = eng.make_scheduler(lanes=SERVE_LANES, max_len=max_len)
     for pr in prompts[:SERVE_LANES]:
         sched.submit(pr, 32)
     sched.step()                        # admits all four lanes
-    device_share(f"4 decode steps, {SERVE_LANES} lanes busy",
-                 lambda: [sched.step() for _ in range(4)])
+    device_share(torch, f"4 decode steps, {SERVE_LANES} lanes busy",
+                 lambda: [sched.step() for _ in range(4)], "flash")
     del sched
     return dict(cfg=cfg, params=params, tok0=tok0, counts=first["counts"],
                 first_token=int(first["toks"][0][0]))
@@ -490,11 +814,6 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # ------------------------------- flash attention vs its plain version
-    def readings(a):
-        return (f"max |err| {a['max_abs_err']:.3e}, worst element "
-                f"{a['worst']:.3f} of its limit, rel. Frobenius "
-                f"{a['rel_frob']:.3e}")
-
     def hold_flash(what, q, k, v, *, causal=True, q_offset=0, iters=0,
                    library=False, controls=False):
         """The kernel against its plain version on the same operands, within
@@ -604,7 +923,8 @@ def main(argv=None):
               f"launches {counts}", flush=True)
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
-                           "polyeval": 5 * MAIN_BLOCKS, "flash_attention": 0},
+                           "polyeval": 5 * MAIN_BLOCKS, "flash_attention": 0,
+                           "rwkv6": 0},
                 f"{what}: launch counts {counts}")
         return y, wall, counts
 
@@ -712,7 +1032,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     tags_counts = launch_counts()
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
-                            "polyeval": 0, "flash_attention": 0},
+                            "polyeval": 0, "flash_attention": 0,
+                            "rwkv6": 0},
             f"tags stage launch counts {tags_counts}")
     tags_want = (12345 * modmatmul_plain(i_pts.reshape(spec.n_workers, col),
                                          rvec.reshape(col, 1), p=p)[:, 0]
@@ -738,6 +1059,13 @@ def main(argv=None):
     print(f"  the served bf16 prefill's first token was {served['first_token']}",
           flush=True)
     del hidden, h, w, logits
+
+    lm_counts = served["counts"]
+    del served, cfg, params
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- serving rwkv6-1.6b at full width
+    rwkv_rec = rwkv_phase(torch, np, dev, args.seed, gen)
 
     # ------------------------------------------------------------ report
 
@@ -776,7 +1104,7 @@ def main(argv=None):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": served["counts"]["flash_attention"],
+        "launches": lm_counts["flash_attention"],
         "max_abs_err": fr["max_abs_err"], "ms": fr["ms"],
         "plain_ms": fr["plain_ms"], "bound_ms": bms, "bound_by": by,
         "library_ms": fr["library_ms"],
@@ -787,6 +1115,7 @@ def main(argv=None):
                     "library_ms": small["library_ms"],
                     "max_abs_err": small["max_abs_err"]},
     })
+    kernels.append(rwkv_rec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

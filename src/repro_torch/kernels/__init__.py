@@ -6,6 +6,8 @@
 * :mod:`.polyeval` — skinny-K ``(V @ T) mod p`` share evaluation;
 * :mod:`.flash_attention` — GQA softmax attention (the serve path's
   prefill);
+* :mod:`.rwkv6` — the RWKV-6 WKV recurrence with its final state (the
+  rwkv family's prefill);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
   binding, at first use.
 
@@ -19,12 +21,14 @@ from typing import Dict
 from . import flash_attention as _flash_attention
 from . import modmatmul as _modmatmul
 from . import polyeval as _polyeval
+from . import rwkv6 as _rwkv6
 
 WRAPPERS = {
     "modmatmul_batched": _modmatmul.modmatmul_batched,
     "modmatmul": _modmatmul.modmatmul,
     "polyeval": _polyeval.polyeval,
     "flash_attention": _flash_attention.flash_attention,
+    "rwkv6": _rwkv6.rwkv6,
 }
 
 

@@ -6,26 +6,26 @@
     cache = model.init_cache(cfg, batch, max_len, device=...)
     logits, cache = model.decode_step(cfg, params, cache, token, pos)
 
-Port of ``repro/models/api.py``.  The dense and vlm families are ported;
-the others raise ``NotImplementedError`` naming their ROADMAP item.
+Port of ``repro/models/api.py``.  The dense, vlm and ssm (RWKV-6)
+families are ported; the others raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
 import types
 
-from . import transformer
+from . import rwkv, transformer
 from .config import ModelConfig
 
 _FAMILY_MODULES = {
     "dense": transformer,
     "vlm": transformer,
+    "ssm": rwkv,
 }
 
 _NOT_PORTED = {
-    "moe": "the MoE family (models/moe.py) comes after the RWKV-6 family "
-           "(ROADMAP queue 1, item 12)",
-    "ssm": "the RWKV-6 family (models/rwkv.py and the rwkv6 kernel) is the "
-           "next slice (ROADMAP queue 1, item 12; queue 2, item 6)",
+    "moe": "the MoE family (models/moe.py) is not ported yet (ROADMAP "
+           "queue 1, item 12)",
     "hybrid": "the jamba family (models/jamba.py, models/ssm.py) is not "
               "ported yet (ROADMAP queue 1, item 12)",
     "encdec": "the whisper family (models/whisper.py) is not ported yet "

@@ -1,12 +1,14 @@
 """Carry the JAX package's weights into the port.
 
-``params_from_numpy(cfg, tree, device=...)`` takes the tree that
-``repro.models.transformer.init_params`` returns, with every leaf as a
-numpy array (``jax.tree.map(np.asarray, params)``), and builds the port's
-:class:`~repro_torch.models.transformer.Transformer`: the stacked
-``[L, ...]`` layer arrays are cut into one :class:`Layer` each.  This
-module has no counterpart in the JAX package; it exists so that tests can
-run both packages on the same weights.
+``params_from_numpy(cfg, tree, device=...)`` takes the tree that the JAX
+family's ``init_params`` returns (``repro.models.transformer`` or
+``repro.models.rwkv``), with every leaf as a numpy array
+(``jax.tree.map(np.asarray, params)``), and builds the port's module for
+``cfg.family``: a :class:`~repro_torch.models.transformer.Transformer` or
+an :class:`~repro_torch.models.rwkv.RWKV`.  The stacked ``[L, ...]``
+layer arrays are cut into one layer module each.  This module has no
+counterpart in the JAX package; it exists so that tests can run both
+packages on the same weights.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from . import rwkv, transformer
+from .api import get_model
 from .config import ModelConfig
-from .transformer import LAYER_KEYS, MOE_TODO, Layer, Transformer
+from .transformer import MOE_TODO
 
 
 def tensor_from_numpy(x: np.ndarray, device) -> torch.Tensor:
@@ -31,17 +35,21 @@ def tensor_from_numpy(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device) -> Transformer:
+def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device):
     """The port's weights from the JAX ``init_params`` tree (numpy
-    leaves), on ``device``."""
+    leaves), on ``device``, as the module of ``cfg.family``; a family
+    that is not ported raises as :func:`~repro_torch.models.api.get_model`
+    does."""
     if cfg.moe is not None:
         raise NotImplementedError(MOE_TODO)
+    family = get_model(cfg)
+    model_cls = rwkv.RWKV if family is rwkv else transformer.Transformer
     stacked = tree["layers"]
-    layers = [Layer({name: tensor_from_numpy(stacked[name][li], device)
-                     for name in LAYER_KEYS})
+    layers = [family.Layer({name: tensor_from_numpy(stacked[name][li], device)
+                            for name in family.Layer.KEYS})
               for li in range(cfg.n_layers)]
     lm_head = tree.get("lm_head")
-    return Transformer(
+    return model_cls(
         tensor_from_numpy(tree["embed"], device), layers,
         tensor_from_numpy(tree["final_norm"], device),
         None if lm_head is None else tensor_from_numpy(lm_head, device))

@@ -35,7 +35,7 @@ from .layers import (
 LAYER_KEYS = ("attn_norm", "w_q", "w_k", "w_v", "w_o", "ffn_norm", "w1", "w3",
               "w2")
 MOE_TODO = ("the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue 1, "
-            "item 12, after the RWKV-6 family")
+            "item 12")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -48,11 +48,14 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 class Layer(nn.Module):
     """One block's weights, named as in the JAX ``params["layers"]`` tree;
-    ``layer["w_q"]`` reads like the JAX dict."""
+    ``layer["w_q"]`` reads like the JAX dict.  ``KEYS`` names them (a
+    family with other blocks subclasses this with its own)."""
+
+    KEYS = LAYER_KEYS
 
     def __init__(self, weights: Mapping[str, torch.Tensor]):
         super().__init__()
-        for name in LAYER_KEYS:
+        for name in self.KEYS:
             self.register_parameter(name, _frozen(weights[name]))
 
     def __getitem__(self, name: str) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Batched serving engine over the continuous-batching scheduler.
 
 Port of ``repro/serve/engine.py``.  ``Engine.generate`` keeps the seed
-contract, ``[B, T] -> [B, max_new]`` greedy continuation, and routes it
-through the paged :class:`~repro_torch.serve.scheduler.ServeScheduler`
-(one lane per row, pool sized to the call).  ``_generate_legacy``, the
-one-shot loop over a static KV slab, stays as the exactness oracle; it
-also serves the families without a paged decode path once they are ported
-(ROADMAP queue 1, item 12).
+contract, ``[B, T] -> [B, max_new]`` greedy continuation, and routes the
+transformer families through the paged
+:class:`~repro_torch.serve.scheduler.ServeScheduler` (one lane per row,
+pool sized to the call).  Families without a paged decode path (rwkv)
+keep ``_generate_legacy``, the one-shot loop over a static cache, which is
+also the paged path's exactness oracle.
 
 Long-lived serving should use :meth:`Engine.make_scheduler` directly:
 submit requests as they arrive, call ``step``/``run``, and let paging and
@@ -31,8 +31,13 @@ from ..mpc.field import resolve_device
 from .scheduler import ServeScheduler, check_params_device
 
 
-def _pad_cache(cache: KVCache, extra: int) -> KVCache:
-    """Grow a stacked ``[..., S, H, D]`` cache by ``extra`` slots of S."""
+def _pad_cache(cache, extra: int):
+    """Grow a stacked ``[..., S, H, D]`` KV cache by ``extra`` slots of S.
+    Any other cache (a recurrent state of constant size) passes through
+    unchanged."""
+    if not isinstance(cache, KVCache):
+        return cache
+
     def pad(x):
         return F.pad(x, (0, 0, 0, 0, 0, extra))
 
@@ -48,6 +53,7 @@ class Engine:
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.model = get_model(cfg)
+        self._paged = hasattr(self.model, "decode_step_paged")
 
     def make_scheduler(self, *, lanes: int = 4,
                        n_blocks: Optional[int] = None,
@@ -68,6 +74,8 @@ class Engine:
         b = prompt.shape[0]
         if max_new < 1:  # honor the [B, max_new] contract without a prefill
             return torch.zeros((b, 0), dtype=torch.int64, device=self.device)
+        if not self._paged:
+            return self._generate_legacy(prompt, max_new, embeds)
         need = prompt.shape[1] + (
             embeds.shape[1] if embeds is not None else 0) + max_new - 1
         sched = self.make_scheduler(lanes=b, max_len=need)
@@ -81,7 +89,7 @@ class Engine:
 
     def _generate_legacy(self, prompt, max_new: int,
                          embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Seed one-shot loop: static KV slab, lock-step decode."""
+        """Seed one-shot loop: static cache, lock-step decode."""
         prompt = self._tokens(prompt)
         logits, cache = self.model.prefill(self.cfg, self.params, prompt,
                                            embeds=embeds)

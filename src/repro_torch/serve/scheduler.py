@@ -83,6 +83,10 @@ class ServeScheduler:
         if lanes < 1:
             raise ValueError(f"lanes must be >= 1, got {lanes}")
         model = get_model(cfg)
+        if not hasattr(model, "decode_step_paged"):
+            raise ValueError(
+                f"family {cfg.family!r} has no paged decode path; use "
+                f"Engine.generate's contiguous loop")
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.cfg, self.params, self.model = cfg, params, model

@@ -9,8 +9,10 @@ it runs where only the port is installed::
 Mod-p comparisons are ``torch.equal`` on field elements (tolerance 0).
 Attention is held within ``flash_attention.agreement``'s limits: 2e-5 in
 fp32; in bf16 two ULP of each element (2^-6 of |ref| plus its row's rms)
-and 2^-8 in relative Frobenius norm.  The served model's logits are held
-at 1e-4 against the same model on the CPU (sums in another order)."""
+and 2^-8 in relative Frobenius norm.  The WKV-6 kernel is held within
+``rwkv6.agreement``'s limits: 1e-4 of each element's |ref| plus its row's
+rms, and 1e-5 in relative Frobenius norm.  The served models' logits are
+held at 1e-4 against the same model on the CPU (sums in another order)."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,9 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.modmatmul import modmatmul, modmatmul_batched, modmatmul_plain
 from repro_torch.kernels.polyeval import polyeval, polyeval_plain
+from repro_torch.kernels.rwkv6 import agreement as wkv_agreement
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_plain
+from repro_torch.models import rwkv as rw
 from repro_torch.models import transformer as tr
 from repro_torch.mpc import P_DEFAULT, P_MERSENNE31, Field, MPCSpec, connect
 from repro_torch.serve import Engine
@@ -65,7 +70,7 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     counts = launch_counts()
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "rwkv6": 0}
 
 
 @pytest.mark.gpu
@@ -108,7 +113,8 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         connect(spec, device="cpu", mode=mode).matmul(a, b, encoded=True).numpy(),
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
-                      "polyeval": 5 * blocks, "flash_attention": 0}
+                      "polyeval": 5 * blocks, "flash_attention": 0,
+                      "rwkv6": 0}
 
 
 # (B, T, S, Hq, Hkv, D, dtype, causal, q_offset)
@@ -213,3 +219,104 @@ def test_gpu_paged_serving_equals_the_contiguous_loop(cuda):
         got = eng.generate(prompt, 6)
         assert got.device.type == "cuda" and got.shape == (2, 6)
         assert torch.equal(got, eng._generate_legacy(prompt, 6))
+
+
+# (B, T, H, dtype, w_mean, with state0, strided views)
+RWKV_CASES = [
+    (4, 256, 32, torch.bfloat16, -6.0, False, False),   # the served layout
+    (1, 1000, 32, torch.bfloat16, 0.0, True, False),    # ragged T, strong decay
+    (2, 37, 3, torch.float32, -6.0, True, True),        # ragged, strided
+    (1, 1, 2, torch.float32, 0.0, False, False),        # one step
+    (3, 64, 5, torch.float32, 1.5, False, True),        # one whole tile
+]
+
+
+def _wkv_operands(g, b, t, h, dtype, w_mean, strided):
+    dev = g.device
+    if strided:   # r, k, v, w as views into one fused [B, T, H, 4*64]
+        fused = torch.randn((b, t, h, 4 * 64), generator=g, device=dev)
+        r, k, v, w = fused.to(dtype).split(64, dim=-1)
+        w = w + w_mean
+        assert not r.is_contiguous()
+    else:
+        r, k, v, w = (torch.randn((b, t, h, 64), generator=g, device=dev)
+                      for _ in range(4))
+        r, k, v, w = (x.to(dtype) for x in (r, k, v, w + w_mean))
+    u = torch.randn((h, 64), generator=g, device=dev)
+    return r, k, v, w, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RWKV_CASES, ids=str)
+def test_gpu_rwkv6_kernel_equals_plain(cuda, case):
+    b, t, h, dtype, w_mean, with_state0, strided = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * 1000 + t)
+    r, k, v, w, u = _wkv_operands(g, b, t, h, dtype, w_mean, strided)
+    s0 = (torch.randn((b, h, 64, 64), generator=g, device=cuda)
+          if with_state0 else None)
+    reset_launch_counts()
+    plain0 = rwkv6_plain.calls
+    out, state = rwkv6(r, k, v, w, u, state0=s0)
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6"] == 1
+    assert rwkv6_plain.calls == plain0
+    want_out, want_state = rwkv6_plain(r, k, v, w, u, state0=s0)
+    assert out.dtype == state.dtype == torch.float32
+    assert out.shape == (b, t, h, 64) and state.shape == (b, h, 64, 64)
+    assert wkv_agreement(out, want_out)["ok"], wkv_agreement(out, want_out)
+    assert wkv_agreement(state, want_state)["ok"], wkv_agreement(state, want_state)
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv6_check_rejects_planted_faults(cuda):
+    """The kernel passes; the bonus term dropped, or the last 64 steps
+    dropped from the state, fail the same check."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    r, k, v, w, u = _wkv_operands(g, 2, 300, 4, torch.bfloat16, -6.0, False)
+    out, state = rwkv6(r, k, v, w, u)
+    want_out, want_state = rwkv6_plain(r, k, v, w, u)
+    assert wkv_agreement(out, want_out)["ok"]
+    no_bonus, _ = rwkv6_plain(r, k, v, w, torch.zeros_like(u))
+    assert not wkv_agreement(no_bonus, want_out)["ok"]
+    _, short = rwkv6_plain(r[:, :-64], k[:, :-64], v[:, :-64], w[:, :-64], u)
+    assert not wkv_agreement(short, want_state)["ok"]
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv6_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 4, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="K = V = 64"):
+        rwkv6(x, x, x, x, torch.zeros((2, 32), device=cuda))
+    y = torch.zeros((1, 4, 64, 2), device=cuda).transpose(2, 3)   # D strided
+    with pytest.raises(ValueError, match="unit stride"):
+        rwkv6(y, y, y, y, torch.zeros((2, 64), device=cuda))
+
+
+def _reduced_rwkv_on(device):
+    cfg = reduced(get_config("rwkv6-1.6b"))
+    return cfg, rw.init_params(cfg, 0, device="cpu").to(device)
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _reduced_rwkv_on(cuda)
+    _, cpu_params = _reduced_rwkv_on("cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 70)))
+    reset_launch_counts()
+    plain0 = rwkv6_plain.calls
+    logits, cache = rw.prefill(cfg, params, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6"] == cfg.n_layers
+    assert rwkv6_plain.calls == plain0
+    want, want_cache = rw.prefill(cfg, cpu_params, toks)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(cache.wkv.cpu(), want_cache.wkv, atol=1e-4,
+                               rtol=1e-4)
+    eng = Engine(cfg, params)
+    got = eng.generate(toks.to(cuda), 5)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), Engine(cfg, cpu_params, device="cpu")
+                       .generate(toks, 5))

@@ -26,6 +26,7 @@ from repro_torch.kernels.modmatmul import (
     modmatmul_batched,
 )
 from repro_torch.kernels.polyeval import polyeval
+from repro_torch.kernels.rwkv6 import rwkv6
 from repro_torch.mpc.errors import ShapeContractError
 
 PRIMES = [P_DEFAULT, P_MERSENNE31]
@@ -147,8 +148,11 @@ def test_cpu_tensors_launch_nothing():
     polyeval(a[0], a[0], p=P_DEFAULT)
     x = torch.ones((1, 4, 2, 32))
     flash_attention(x, x[:, :, :1], x[:, :, :1])
+    y = torch.ones((1, 3, 2, 64))
+    rwkv6(y, y, y, y, torch.ones((2, 64)))
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
-                               "polyeval": 0, "flash_attention": 0}
+                               "polyeval": 0, "flash_attention": 0,
+                               "rwkv6": 0}
 
 
 # ---------------------------------------------------------------- polyeval

@@ -20,6 +20,7 @@ from repro.models import layers as j_layers
 from repro.models import transformer as j_tr
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.models import layers as t_layers
+from repro_torch.models import rwkv as t_rwkv
 from repro_torch.models import transformer as t_tr
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
@@ -223,9 +224,13 @@ def test_logits_mask_padded_vocab():
 
 # --------------------------------------------------------------- families
 def test_get_model_ports_dense_and_vlm_only():
+    """dense and vlm go through the transformer module, ssm through rwkv;
+    every other family raises naming its ROADMAP item."""
     for name, cfg in ARCHS.items():
         if cfg.family in ("dense", "vlm"):
             assert get_model(cfg) is t_tr, name
+        elif cfg.family == "ssm":
+            assert get_model(cfg) is t_rwkv, name
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_model(cfg)
