@@ -7,10 +7,18 @@
    when there is no card.
 2. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, all at once) and prints the
-   build time and ``-Xptxas -v``'s registers, shared memory and spills.
+   build time and ``-Xptxas -v``'s registers, shared memory and spills,
+   and any "Potential Performance Loss" ptxas reports (serialized wgmma).
 3. Holds every mod-p kernel against its plain version on the card
-   (``torch.equal``) for both primes, at the main path's shapes, a ragged
-   shape and the all-(p-1) corner, and times both with CUDA events.
+   (``torch.equal``) for both primes, at the main path's shapes, ragged
+   shapes and the all-(p-1) corner (K = 3000, and K = 20000 past the
+   tensor-core instance's s32 run), and times both with CUDA events.
+   ``modmatmul_batched`` has two instances (``choose_instance``): the
+   tensor-core one serves the main shape, and the CUDA-core one is held
+   and timed beside it in the same run through the module's private
+   launcher; cuBLAS's int8 rate on the same 16 limb products
+   (``torch._int_mm``, which the port never calls) is printed as a
+   yardstick.
 4. Holds the flash-attention kernel against its plain version at the
    serve path's prefill shapes (llama3.2-1b: Hq 32, Hkv 8, D 64, bf16,
    T = 2048 and 512), a ragged T, T != S with ``q_offset``, non-causal and
@@ -18,26 +26,30 @@
    bf16 two ULP of each element and 2^-8 in relative Frobenius norm), and
    shows that two planted faults fail that check; times the kernel, the
    plain version and ``scaled_dot_product_attention`` (the library
-   yardstick, which the port never calls).
+   yardstick, which the port never calls).  bf16 with aligned rows takes
+   the wgmma instance; the ``mma.sync`` instance serves the unaligned
+   views and is held and timed beside it at the prefill shapes.
 5. Runs the MPC main path: a full-width lm_head projection
    ``[1, 2048] x [2048, 128256]`` (llama3.2-1b's hidden size and
    vocabulary) through ``connect(MPCSpec(s=2, t=2, z=2)).matmul`` on the
    card; checks it exact in the field, from all 17 workers and from only
    t^2+z = 6 of them, and on floats equal to the float64 product of the
-   operands as the field encodes them; checks
-   from the launch counters that every product ran in the kernels.
+   operands as the field encodes them; checks from the launch counters
+   that every product ran in the kernels, all 63 worker products in the
+   tensor-core instance.
    A ``torch.profiler`` table of one more call shows where its device time
    goes.
-6. Drives the ``tags`` stage (the W = 1 ``modmatmul``) on the main path's
-   plan.
+6. Drives the ``tags`` stage (the W = 1 ``modmatmul``, CUDA-core instance
+   with split K) on the main path's plan.
 7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
    drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
    lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
    Checks every request's tokens, mid-stream admission, 16 flash launches
-   per prefill and no plain attention, and that a second run gives the
-   same tokens; holds the kernel against its plain version on layer 0's
-   real q, k, v; prints prefill times (one ``prefill`` call per prompt
-   length), the scheduler's decode step times and peak memory.
+   per prefill (all in the wgmma instance) and no plain attention, and
+   that a second run gives the same tokens; holds the kernel against its
+   plain version on layer 0's real q, k, v; prints prefill times (one
+   ``prefill`` call per prompt length), the scheduler's decode step times
+   and peak memory.
 8. Runs the served model's lm_head privately: the final hidden state of
    the first 2048-token request times the tied head ``embed.T`` through
    the MPC session, equal to the float64 product of the fixed-point
@@ -108,8 +120,9 @@ def require(ok, what):
 
 
 def limbs(p):
-    """7-bit limbs per field element under the int8 tensor-core schedule."""
-    return -(-p.bit_length() // 7)
+    """8-bit limbs per field element under the int8 tensor-core schedule
+    (``csrc/modmatmul_tc.cu``): 4 for both primes, 16 limb products."""
+    return -(-p.bit_length() // 8)
 
 
 def bound(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
@@ -481,6 +494,27 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, iters):
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed once between CUDA events, so the host's launch path (the
+    wrapper, ``ctypes``, PyTorch's dispatch) is not in the number."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def ptxas_lines(log):
     """``-Xptxas -v`` usage lines, each under its kernel's short name."""
     out, name = [], "?"
@@ -494,6 +528,8 @@ def ptxas_lines(log):
             name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         elif "Used" in line or "spill" in line:
             out.append(f"  {name}: {line.split(':', 1)[-1].strip()}")
+        elif "Performance Loss" in line:     # e.g. wgmma serialized, and why
+            out.append(f"  {line.split(':', 1)[-1].split(' in the function')[0]}")
     return out
 
 
@@ -526,7 +562,11 @@ def serve_phase(torch, np, dev, seed, hold_flash):
     Returns what the later phases need: the config, the weights, the first
     2048-token prompt and the flash launches of the first run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import layers
     from repro_torch.models import transformer as tr
@@ -593,6 +633,10 @@ def serve_phase(torch, np, dev, seed, hold_flash):
                            "rwkv6": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
+        inst = instance_counts()["flash_attention"]
+        require(inst == {"wgmma": cfg.n_layers * prefills, "mma_sync": 0,
+                         "cuda_core": 0},
+                f"{what}: flash_attention instances {inst}")
         require(sched.alloc.used_blocks() == 0, f"{what}: blocks still held")
         require(sched.stats["stalls"] == 0, f"{what}: {sched.stats['stalls']} "
                 f"stalls in a pool sized for the worst case")
@@ -600,8 +644,8 @@ def serve_phase(torch, np, dev, seed, hold_flash):
               f"{wall * 1e3:.1f} ms wall; {sched.stats['steps']} decode steps, "
               f"admitted in flight {sched.stats['admitted_inflight']}, "
               f"peak KV blocks {sched.alloc.stats['peak_used']} of "
-              f"{sched.alloc.n_blocks - 1}; launches {counts}, plain attention "
-              f"calls {plain}", flush=True)
+              f"{sched.alloc.n_blocks - 1}; launches {counts}, flash "
+              f"instances {inst}, plain attention calls {plain}", flush=True)
         return dict(toks=toks, counts=counts, wall=wall, decode=decode,
                     peak=peak, pool=sched.pool)
 
@@ -691,7 +735,14 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
-    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        _build,
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import modmatmul as mm_mod
     from repro_torch.kernels.barrett import matmul_folded
     from repro_torch.kernels.flash_attention import (
         agreement,
@@ -772,21 +823,50 @@ def main(argv=None):
     mmb = (modmatmul_batched, modmatmul_plain)
     mm1 = (modmatmul, modmatmul_plain)
     pev = (polyeval, polyeval_plain)
+
+    def instance(name):
+        """``modmatmul_batched``'s ``name`` instance through the module's
+        private launcher (uncounted), beside the chosen one."""
+        return (lambda a, b, p: mm_mod._launch(a, b, p=p, instance=name),
+                modmatmul_plain)
+
     blk = 1024                              # m/t = m/s at m = 2048
     col = blk * blk                         # flattened block: C = (m/t)^2
     main_pe = [(17, 6, col), (17, 6, col), (17, 17, col), (17, 2, col),
                (4, 6, col)]                 # encode A, B; G-mix; mask; decode
+    require(mm_mod.choose_instance(17, blk, blk, blk) == "tensor_core",
+            "the main path's worker product does not take the tensor cores")
     rec = {}
     for p in (P_DEFAULT, P_MERSENNE31):
         print(f"kernel checks, p = {p} (acc_window {acc_window(p)}):", flush=True)
         ab = rand(p, 17, blk, blk), rand(p, 17, blk, blk)
-        r = compare(f"modmatmul_batched [17,{blk},{blk}]^2", *mmb, ab, p)
-        rec[("modmatmul_batched", p)] = dict(r, work=mm_work(17, blk, blk, blk, p))
-        compare("modmatmul_batched ragged [3,33,65]@[3,65,17]", *mmb,
-                (rand(p, 3, 33, 65), rand(p, 3, 65, 17)), p, iters=0)
+        r = compare(f"modmatmul_batched [17,{blk},{blk}]^2 (tensor_core, "
+                    f"chosen)", *mmb, ab, p)
+        old = compare(f"modmatmul_batched [17,{blk},{blk}]^2 (cuda_core, the "
+                      f"earlier instance)", *instance("cuda_core"), ab, p)
+        print(f"    tensor_core is {old['ms'] / r['ms']:.2f}x faster than "
+              f"cuda_core in this run", flush=True)
+        rec[("modmatmul_batched", p)] = dict(
+            r, work=mm_work(17, blk, blk, blk, p), instance="tensor_core",
+            earlier={"instance": "cuda_core", "ms": old["ms"],
+                     "speedup": old["ms"] / r["ms"]})
+        for name in ("tensor_core", "cuda_core"):
+            compare(f"modmatmul_batched ragged [3,33,65]@[3,65,17] ({name})",
+                    *instance(name), (rand(p, 3, 33, 65), rand(p, 3, 65, 17)),
+                    p, iters=0)
+            compare(f"modmatmul_batched ragged [2,70,130]@[2,130,200] ({name})",
+                    *instance(name), (rand(p, 2, 70, 130), rand(p, 2, 130, 200)),
+                    p, iters=0)
         compare("modmatmul_batched all-(p-1) corner, K=3000", *mmb,
                 (full(p, 4, 256, 3000), full(p, 4, 3000, 64)), p, iters=0,
                 want=pow(p - 1, 2, p) * 3000 % p)
+        compare("modmatmul_batched all-(p-1) corner, K=3000 (cuda_core)",
+                *instance("cuda_core"),
+                (full(p, 4, 256, 3000), full(p, 4, 3000, 64)), p, iters=0,
+                want=pow(p - 1, 2, p) * 3000 % p)
+        compare("modmatmul_batched all-(p-1) corner, K=20000 (three s32 runs)",
+                *mmb, (full(p, 2, 64, 20000), full(p, 2, 20000, 64)), p,
+                iters=0, want=pow(p - 1, 2, p) * 20000 % p)
         # W = 1 at the tags stage's shape on the main path's plan
         r = compare(f"modmatmul [17,{col}]@[{col},1] (tags), K split "
                     f"{k_splits(1, 17, col, 1, sms)}", *mm1,
@@ -813,6 +893,23 @@ def main(argv=None):
         del ab
         torch.cuda.empty_cache()
 
+    # the yardstick: cuBLAS's int8 GEMM on the same 16 limb products of one
+    # worker product, as [4*1024, 1024] @ [1024, 4*1024] limb stacks, 17
+    # times (timed only; the port never calls it).  B is column-major, the
+    # layout cuBLASLt's int8 tensor-core kernels take.
+    a8 = torch.randint(-128, 128, (4 * blk, blk), generator=gen, device=dev,
+                       dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (4 * blk, blk), generator=gen, device=dev,
+                       dtype=torch.int8).t()
+    int8_ms = 17 * time_ms(torch, lambda: torch._int_mm(a8, b8), 20)
+    int8_ops = 2 * 17 * 16 * blk**3
+    print(f"yardstick: torch._int_mm (cuBLAS int8) on the 16 limb products of "
+          f"[17,{blk},{blk}]^2: {int8_ms:.4f} ms = "
+          f"{int8_ops / int8_ms / 1e9:.1f} TOP/s ({int8_ops / 1e12:.3f} "
+          f"Tops; the bound at 1979 TOP/s is "
+          f"{int8_ops / INT8_OPS_PER_S * 1e3:.4f} ms)", flush=True)
+    del a8, b8
+
     # ------------------------------- flash attention vs its plain version
     def hold_flash(what, q, k, v, *, causal=True, q_offset=0, iters=0,
                    library=False, controls=False):
@@ -821,6 +918,7 @@ def main(argv=None):
         when ``library``; with ``controls``, two planted faults must fail
         the same check."""
         kw = dict(causal=causal, q_offset=q_offset)
+        chosen = fa_mod.choose_instance(q, k, v)
         got = flash_attention(q, k, v, **kw)
         ref = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -828,11 +926,26 @@ def main(argv=None):
                 f"{what}: {tuple(got.shape)} {got.dtype}")
         require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
         agree = agreement(got, ref)
-        require(agree["ok"], f"{what}: kernel != plain ({readings(agree)})")
+        require(agree["ok"], f"{what}: kernel ({chosen}) != plain "
+                f"({readings(agree)})")
         err = agree["max_abs_err"]
         nbytes, flops, peak = attn_work(q, k, causal, q_offset)
-        rec = {"max_abs_err": err, "work": (nbytes, flops), "peak": peak}
-        print(f"  {what}: {readings(agree)}", flush=True)
+        rec = {"max_abs_err": err, "work": (nbytes, flops), "peak": peak,
+               "instance": chosen}
+        print(f"  {what} [{chosen}]: {readings(agree)}", flush=True)
+        if iters and chosen == "wgmma":
+            # the earlier instance on the same operands, held and timed
+            def old():
+                return fa_mod._launch(q, k, v, instance="mma_sync", **kw)
+
+            a_old = agreement(old(), ref)
+            require(a_old["ok"], f"{what}: mma_sync instance != plain "
+                    f"({readings(a_old)})")
+            rec["earlier"] = {"instance": "mma_sync",
+                              "ms": time_ms(torch, old, iters),
+                              "device_ms": graph_ms(torch, old, iters),
+                              "max_abs_err": a_old["max_abs_err"]}
+            print(f"    [mma_sync] {readings(a_old)}", flush=True)
         if controls:
             for fault, bad in planted_faults(q, k, v, ref, **kw):
                 a = agreement(bad, ref)
@@ -844,18 +957,31 @@ def main(argv=None):
         if iters:
             rec["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, **kw),
                                 iters)
+            rec["device_ms"] = graph_ms(
+                torch, lambda: flash_attention(q, k, v, **kw), iters)
             rec["plain_ms"] = time_ms(
                 torch, lambda: flash_attention_plain(q, k, v, **kw), iters)
             bms, by = bound(nbytes, flops, peak)
             note = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
                     f" ms, bound {bms:.4f} ms ({by})")
+            note += f" (device time in a CUDA graph {rec['device_ms']:.4f} ms)"
+            if "earlier" in rec:
+                e = rec["earlier"]
+                e["speedup"] = e["ms"] / rec["ms"]
+                e["device_speedup"] = e["device_ms"] / rec["device_ms"]
+                note += (f", mma_sync instance {e['ms']:.4f} ms, device "
+                         f"{e['device_ms']:.4f} ms ({e['speedup']:.2f}x and "
+                         f"{e['device_speedup']:.2f}x the time)")
         if library:
             lib = sdpa(q, k, v, causal).transpose(1, 2)
             lib_err = float((lib.float() - ref.float()).abs().max())
             rec["library_ms"] = time_ms(torch, lambda: sdpa(q, k, v, causal),
                                         iters)
+            rec["library_device_ms"] = graph_ms(
+                torch, lambda: sdpa(q, k, v, causal), iters)
             note += (f", scaled_dot_product_attention {rec['library_ms']:.4f} ms"
-                     f" (max |diff| to plain {lib_err:.3e})")
+                     f", device {rec['library_device_ms']:.4f} ms (max |diff| to "
+                     f"plain {lib_err:.3e})")
         if note:
             print(f"    {note}", flush=True)
         return rec
@@ -920,12 +1046,16 @@ def main(argv=None):
         counts = launch_counts()
         blocks = sess.stats["blocks"] - blocks0
         print(f"  {what}: {wall * 1e3:.1f} ms wall, {blocks} blocks, "
-              f"launches {counts}", flush=True)
+              f"launches {counts}, modmatmul_batched instances "
+              f"{instance_counts()['modmatmul_batched']}", flush=True)
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
                            "polyeval": 5 * MAIN_BLOCKS, "flash_attention": 0,
                            "rwkv6": 0},
                 f"{what}: launch counts {counts}")
+        inst = instance_counts()["modmatmul_batched"]
+        require(inst == {"tensor_core": MAIN_BLOCKS, "cuda_core": 0},
+                f"{what}: modmatmul_batched instances {inst}")
         return y, wall, counts
 
     p = spec.field.p
@@ -1035,6 +1165,8 @@ def main(argv=None):
                             "polyeval": 0, "flash_attention": 0,
                             "rwkv6": 0},
             f"tags stage launch counts {tags_counts}")
+    require(instance_counts()["modmatmul"] == {"tensor_core": 0, "cuda_core": 1},
+            f"tags stage instances {instance_counts()['modmatmul']}")
     tags_want = (12345 * modmatmul_plain(i_pts.reshape(spec.n_workers, col),
                                          rvec.reshape(col, 1), p=p)[:, 0]
                  + offsets) % p
@@ -1096,6 +1228,16 @@ def main(argv=None):
             "library_ms": None, "shape": shape, "p": p,
             "path": "tags stage" if name == "modmatmul" else "main path",
         })
+        if name == "modmatmul_batched":
+            r31 = rec[(name, P_MERSENNE31)]
+            kernels[-1].update({
+                "instance": r["instance"], "earlier": r["earlier"],
+                "int8_yardstick_ms": int8_ms,
+                "m31": {"ms": r31["ms"], "plain_ms": r31["plain_ms"],
+                        "bound_ms": bound(*r31["work"])[0],
+                        "earlier": r31["earlier"]}})
+        elif name == "modmatmul":
+            kernels[-1]["instance"] = "cuda_core"
     fr = flash_rec[2048]
     bms, by = bound(*fr["work"], fr["peak"])
     small = flash_rec[512]
@@ -1109,11 +1251,17 @@ def main(argv=None):
         "plain_ms": fr["plain_ms"], "bound_ms": bms, "bound_by": by,
         "library_ms": fr["library_ms"],
         "shape": "bf16 causal q [1,2048,32,64], k and v [1,2048,8,64]",
-        "path": "serve prefill",
+        "path": "serve prefill", "instance": fr["instance"],
+        "device_ms": fr["device_ms"],
+        "library_device_ms": fr["library_device_ms"],
+        "earlier": fr["earlier"],
         "at_t512": {"ms": small["ms"], "plain_ms": small["plain_ms"],
                     "bound_ms": small_bound[0], "bound_by": small_bound[1],
                     "library_ms": small["library_ms"],
-                    "max_abs_err": small["max_abs_err"]},
+                    "max_abs_err": small["max_abs_err"],
+                    "device_ms": small["device_ms"],
+                    "library_device_ms": small["library_device_ms"],
+                    "earlier": small["earlier"]},
     })
     kernels.append(rwkv_rec)
     print(json.dumps({"kernels": kernels}))

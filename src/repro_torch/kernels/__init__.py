@@ -12,7 +12,10 @@
   binding, at first use.
 
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
-wrappers' launch counters, so a run can show which kernels it went through.
+wrappers' launch counters, so a run can show which kernels it went through;
+:func:`instance_counts` splits them by the instance each wrapper's chooser
+picked (``modmatmul*``: ``tensor_core`` or ``cuda_core``;
+``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def instance_counts() -> Dict[str, Dict[str, int]]:
+    """Launches per instance since the last reset, for the wrappers that
+    choose between kernels."""
+    return {name: dict(fn.instances) for name, fn in WRAPPERS.items()
+            if hasattr(fn, "instances")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "instances"):
+            fn.instances = dict.fromkeys(fn.instances, 0)

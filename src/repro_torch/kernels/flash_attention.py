@@ -8,19 +8,27 @@ uses ``q_offset = 0`` with ``T == S``, where the Pallas kernel (causal mask
 aligned top-left) and ``ref.flash_attention_ref`` (aligned bottom-right)
 agree.
 
-Port of ``repro/kernels/flash_attention.py``.  The CUDA kernel
-(``csrc/flash_attention.cu``) gives each block one (batch, q-head, 64-row
-q tile), loops over kv tiles with an fp32 online softmax, skips tiles above
-the diagonal and reads the ``[B, T, H, D]`` layout through its strides.
-bf16 runs on the tensor cores (``mma.sync``), fp32 on the CUDA cores; the
-source states its bound and design.  Head dims 32, 64 and 128.
+Port of ``repro/kernels/flash_attention.py``.  The CUDA kernels
+(``csrc/flash_attention.cu``) give each block one (batch, q-head, q tile),
+loop over kv tiles with an fp32 online softmax, skip tiles above the
+diagonal and read the ``[B, T, H, D]`` layout through its strides.  Three
+instances, of which :func:`choose_instance` picks one before any launch:
+
+* ``wgmma``: bf16 on Hopper's wgmma, fed by TMA through an mbarrier ring,
+  for operands whose bases and strides are 16-byte aligned (the serve
+  path's q, k, v);
+* ``mma_sync``: bf16 on ``mma.sync`` for the rest (rows that are not
+  16-byte aligned);
+* ``cuda_core``: fp32 on the CUDA cores.
+
+The source states the bound and design.  Head dims 32, 64 and 128.
 
 The wrapper checks its operands, allocates the output with
 ``torch.empty``, launches on the current stream and counts the launch in
-``flash_attention.launches``.  A CPU tensor takes the plain version
-(:func:`flash_attention_plain`, which counts its calls in
-``flash_attention_plain.calls``); a CUDA tensor launches the kernel or
-raises.
+``flash_attention.launches`` and ``flash_attention.instances[name]``.  A
+CPU tensor takes the plain version (:func:`flash_attention_plain`, which
+counts its calls in ``flash_attention_plain.calls``); a CUDA tensor
+launches the chosen kernel or raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -35,7 +43,10 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)       # the kernel's template instances
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels' instances, as the C launcher numbers them
+_INSTANCE_IDS = {"wgmma": 2, "mma_sync": 1, "cuda_core": 0}
+INSTANCES = tuple(_INSTANCE_IDS)
 
 # The kernel against its plain version on the same operands (see
 # :func:`agreement`).  fp32: 2e-5 absolute and relative.  A bf16 output
@@ -112,6 +123,23 @@ def _lib():
     return fn
 
 
+def choose_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that serves these operands on the card.
+
+    ``"cuda_core"`` for fp32.  For bf16, ``"wgmma"`` when every operand's
+    base address is 16-byte aligned and its batch, row and head strides are
+    multiples of 8 elements (TMA moves whole 16-byte units), else
+    ``"mma_sync"``.  A pure function of dtype, strides and pointers, so the
+    CPU tests can ask it.
+    """
+    if q.dtype != torch.bfloat16:
+        return "cuda_core"
+    for x in (q, k, v):
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            return "mma_sync"
+    return "wgmma"
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for x in (q, k, v):
         if not isinstance(x, torch.Tensor) or x.dtype not in _DTYPES:
@@ -152,6 +180,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    instance = choose_instance(q, k, v)
+    out = _launch(q, k, v, instance=instance, causal=causal, q_offset=q_offset,
+                  scale=scale)
+    flash_attention.launches += 1
+    flash_attention.instances[instance] += 1
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            instance: str, causal: bool = True, q_offset: int = 0,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Launch one instance on checked CUDA operands, uncounted: the
+    wrapper's path after :func:`choose_instance`, and the way to time or
+    check an instance the chooser would not pick."""
+    if instance not in INSTANCES:
+        raise ValueError(f"unknown flash_attention instance {instance!r}; "
+                         f"known: {INSTANCES}")
+    if (instance == "cuda_core") != (q.dtype == torch.float32):
+        raise TypeError(f"the {instance} instance does not take {q.dtype}")
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -164,13 +211,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     _DTYPES[q.dtype], b, t, s, hq, hkv, d, *strides,
-                     int(causal), int(q_offset), float(scale), stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+                     _INSTANCE_IDS[instance], b, t, s, hq, hkv, d,
+                     *strides, int(causal), int(q_offset), float(scale), stream)
+    _build.check(err, f"flash_attention ({instance})")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.instances = dict.fromkeys(INSTANCES, 0)

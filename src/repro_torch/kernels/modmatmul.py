@@ -2,25 +2,33 @@
 
 ``O = (A @ B) mod p`` for field elements (int64 storage, values < p).
 
-Port of ``repro/kernels/modmatmul.py``.  The CUDA kernel
-(``csrc/modmatmul.cu``) replaces both Pallas kernels: one block per
-(worker, 64×64 output tile) loops over K with shared-memory tiles and a
-register micro-tile, folding with ``mod_p`` every ``acc_window(p)``
-products.  When the output tiles cannot fill the card, K is split across
-blocks as well (:func:`k_splits`).  The source states its bound and
-design.
+Port of ``repro/kernels/modmatmul.py``.  Two CUDA kernels replace the
+Pallas kernels, and :func:`choose_instance` picks one from the shapes alone
+before any launch:
 
-Two wrappers, one kernel:
+* ``tensor_core`` (``csrc/modmatmul_tc.cu``): the product over 8-bit limbs
+  on the int8 tensor cores (wgmma fed by TMA), for every product whose
+  output fills its 64x64 tiles (the main path's ``[17,1024,1024]²``);
+* ``cuda_core`` (``csrc/modmatmul.cu``): one block per (worker, 64×64
+  output tile) loops over K with shared-memory tiles and a register
+  micro-tile, folding with ``mod_p`` every ``acc_window(p)`` products, and
+  splits K across blocks when the output tiles cannot fill the card
+  (:func:`k_splits`): the ``tags`` stage's ``[17, 2^20] @ [2^20, 1]``.
+
+Each source states its bound and design.  Two wrappers:
 
 * :func:`modmatmul_batched` — all W workers' ``[M,K] @ [K,N]`` in one
   launch (``worker_compute``'s product);
-* :func:`modmatmul` — one product, the kernel's ``W = 1`` launch.
+* :func:`modmatmul` — one product, the ``W = 1`` launch.
 
-Each wrapper checks its operands, allocates the output with
-``torch.empty``, launches on the current stream and counts the launch in
-its ``launches`` attribute.  A CPU tensor takes the plain version
+Each wrapper checks its operands, allocates the output (and the tensor-core
+instance's limb planes) with ``torch.empty``, launches on the current
+stream and counts the launch in its ``launches`` attribute and in
+``instances[name]``.  A CPU tensor takes the plain version
 (:func:`modmatmul_plain`, the :mod:`repro_torch.kernels.barrett` ops); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the chosen kernel or raises: nothing falls back.
+:func:`modmatmul_tc_emulation` repeats the tensor-core instance's integer
+schedule in plain torch for the CPU tests.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import torch
 from ..mpc.errors import ShapeContractError
 from ..mpc.field import acc_window
 from . import _build
-from .barrett import matmul_plain
+from .barrett import matmul_plain, mod_p
 
 
 def modmatmul_plain(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
@@ -41,6 +49,13 @@ def modmatmul_plain(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor
     return matmul_plain(a, b, p=p, window=acc_window(p))
 
 
+INSTANCES = ("tensor_core", "cuda_core")
+
+TC_TILE = 64       # modmatmul_tc.cu's output tile side (BM = BN)
+LIMBS = 4          # 8-bit limbs per element: any p < 2^32
+# The longest K-run whose diagonal sums fit the s32 accumulators: a diagonal
+# holds at most 4 limb pairs, and 4·255²·8256 < 2^31 <= 4·255²·8257.
+K_RUN_MAX = 8256
 TILE = 64          # output tile side of one block (BM = BN in modmatmul.cu)
 TILE_K = 32        # K depth staged per shared-memory pass (BK)
 MIN_SPLIT_K = 512  # fewest K rows worth a block of their own
@@ -65,6 +80,55 @@ def k_splits(w: int, m: int, k: int, n: int, sms: int):
     return -(-k // chunk), chunk
 
 
+def choose_instance(w: int, m: int, k: int, n: int) -> str:
+    """The kernel that serves a ``[W,M,K] @ [W,K,N]`` product on the card.
+
+    ``"tensor_core"`` when its 64×64 output tile is full in both M and N
+    (and the grid fits), ``"cuda_core"`` otherwise: a skinny product such
+    as the ``tags`` stage's N = 1, where split K fills the card, or a tiny
+    ragged one.  A pure function of the shapes.
+    """
+    if (m >= TC_TILE and n >= TC_TILE and k >= 1 and w <= MAX_GRID_Z
+            and -(-m // TC_TILE) <= MAX_GRID_Z):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def modmatmul_tc_emulation(a: torch.Tensor, b: torch.Tensor, *, p: int,
+                           run: int = K_RUN_MAX) -> torch.Tensor:
+    """The tensor-core instance's integer schedule in plain torch.
+
+    Splits every element into four unsigned 8-bit limbs, sums each diagonal
+    ``D_d = Σ_{i+j=d} A_i @ B_j`` exactly in int64 over K-runs of ``run``
+    products, raises ``OverflowError`` if a run's diagonal would leave the
+    kernel's s32 accumulator (``>= 2^31``), and folds each run by Horner,
+    ``R <- mod_p(R·2^8 + D_d)`` for d = 6 … 0.  Elements may be any value
+    in ``[0, 2^32)``.  The CPU tests hold it to the JAX kernels; the port
+    never calls it.
+    """
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    al = [(a >> (8 * i)) & 0xFF for i in range(LIMBS)]
+    bl = [(b >> (8 * j)) & 0xFF for j in range(LIMBS)]
+    k = a.shape[-1]
+    out = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.int64,
+                      device=a.device)
+    for k0 in range(0, k, run):
+        cut = slice(k0, k0 + run)
+        diag = [torch.zeros_like(out) for _ in range(2 * LIMBS - 1)]
+        for i in range(LIMBS):
+            for j in range(LIMBS):
+                diag[i + j] += al[i][..., cut] @ bl[j][..., cut, :]
+        top = max(int(d.max()) for d in diag) if out.numel() else 0
+        if top >= 2**31:
+            raise OverflowError(f"a diagonal of the K-run [{k0}, "
+                                f"{min(k, k0 + run)}) reaches {top} >= 2^31")
+        acc = diag[-1]
+        for d in reversed(diag[:-1]):
+            acc = mod_p(acc * 256 + d, p)
+        out = mod_p(out + acc, p)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -79,6 +143,16 @@ def _lib():
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_tc():
+    fn = _build.load("modmatmul_tc").modmatmul_tc_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,7 +179,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, ndim: int, what: str) -> None:
             shapes=(a.shape, b.shape))
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
+def _launch_cuda_core(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
     w, m, k = a.shape
     n = b.shape[2]
     args = _build.fold_args(p)
@@ -119,7 +193,46 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
         err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                      None if part is None else part.data_ptr(),
                      w, m, k, n, splits, chunk, *args, stream)
-    _build.check(err, "modmatmul")
+    _build.check(err, "modmatmul (cuda_core)")
+    return out
+
+
+def _launch_tensor_core(a: torch.Tensor, b: torch.Tensor, *,
+                        p: int) -> torch.Tensor:
+    w, m, k = a.shape
+    n = b.shape[2]
+    p_, bits, c, n_folds, _ = _build.fold_args(p)
+    kp = -(-k // 16) * 16        # limb-plane row stride: TMA wants 16 bytes
+    out = torch.empty((w, m, n), dtype=torch.int64, device=a.device)
+    a_limbs = torch.empty((w, LIMBS, m, kp), dtype=torch.uint8, device=a.device)
+    b_limbs = torch.empty((w, LIMBS, n, kp), dtype=torch.uint8, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib_tc()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        a_limbs.data_ptr(), b_limbs.data_ptr(), w, m, k, n, kp,
+                        p_, bits, c, n_folds, stream)
+    _build.check(err, "modmatmul (tensor_core)")
+    return out
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int,
+            instance: str) -> torch.Tensor:
+    """Launch one instance on ``[W,M,K] @ [W,K,N]`` CUDA operands, uncounted:
+    the wrappers' path after :func:`choose_instance`, and the way to time or
+    check an instance the chooser would not pick."""
+    if instance == "tensor_core":
+        return _launch_tensor_core(a, b, p=p)
+    if instance == "cuda_core":
+        return _launch_cuda_core(a, b, p=p)
+    raise ValueError(f"unknown modmatmul instance {instance!r}; "
+                     f"known: {INSTANCES}")
+
+
+def _counted(fn, a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    instance = choose_instance(a.shape[0], a.shape[1], a.shape[2], b.shape[2])
+    out = _launch(a, b, p=p, instance=instance)
+    fn.launches += 1
+    fn.instances[instance] += 1
     return out
 
 
@@ -132,22 +245,19 @@ def modmatmul_batched(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tens
     _check(a, b, 3, "modmatmul_batched")
     if a.device.type == "cpu":
         return modmatmul_plain(a, b, p=p)
-    out = _launch(a, b, p=p)
-    modmatmul_batched.launches += 1
-    return out
+    return _counted(modmatmul_batched, a, b, p)
 
 
 def modmatmul(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
     """``(a @ b) mod p`` for one ``[M, K] @ [K, N]`` product: the
-    kernel's ``W = 1`` launch.  Same operand contract as
+    kernels' ``W = 1`` launch.  Same operand contract as
     :func:`modmatmul_batched`."""
     _check(a, b, 2, "modmatmul")
     if a.device.type == "cpu":
         return modmatmul_plain(a, b, p=p)
-    out = _launch(a[None], b[None], p=p)[0]
-    modmatmul.launches += 1
-    return out
+    return _counted(modmatmul, a[None], b[None], p)[0]
 
 
-modmatmul_batched.launches = 0
-modmatmul.launches = 0
+for _fn in (modmatmul_batched, modmatmul):
+    _fn.launches = 0
+    _fn.instances = dict.fromkeys(INSTANCES, 0)

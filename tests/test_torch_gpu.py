@@ -12,13 +12,27 @@ fp32; in bf16 two ULP of each element (2^-6 of |ref| plus its row's rms)
 and 2^-8 in relative Frobenius norm.  The WKV-6 kernel is held within
 ``rwkv6.agreement``'s limits: 1e-4 of each element's |ref| plus its row's
 rms, and 1e-5 in relative Frobenius norm.  The served models' logits are
-held at 1e-4 against the same model on the CPU (sums in another order)."""
+held at 1e-4 against the same model on the CPU (sums in another order).
+
+Where a wrapper chooses between kernels (``modmatmul*``: ``tensor_core`` or
+``cuda_core``; ``flash_attention``: ``wgmma``, ``mma_sync`` or
+``cuda_core``), each instance is held here, the ones the chooser would not
+pick through the module's private ``_launch``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import (
+    _build,
+    instance_counts,
+    launch_counts,
+    reset_launch_counts,
+)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import modmatmul as mm
 from repro_torch.kernels.flash_attention import (
     agreement,
     flash_attention,
@@ -71,6 +85,52 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
                       "flash_attention": 0, "rwkv6": 0}
+
+
+# (W, M, K, N): the main path's product cut to 128, ragged edges in every
+# dim, one row and column, a K past one 128-byte tile, and K past one s32
+# run (8192) with ragged ends
+TC_SHAPES = [(17, 128, 128, 128), (3, 33, 65, 17), (2, 1, 7, 1),
+             (4, 64, 3000, 64), (2, 70, 130, 200), (1, 65, 9000, 129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_modmatmul_tensor_core_equals_plain(cuda, p):
+    """The tensor-core instance on every shape, chosen or not: equal to the
+    plain version; the all-(p-1) corner at K = 3000 and at K = 20000 (three
+    s32 runs) equal to the closed form."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(p % 997)
+    for w, m, k, n in TC_SHAPES:
+        a, b = _rand(g, p, (w, m, k)), _rand(g, p, (w, k, n))
+        got = mm._launch(a, b, p=p, instance="tensor_core")
+        assert torch.equal(got, modmatmul_plain(a, b, p=p)), (w, m, k, n)
+    for k in (3000, 20000):
+        a = torch.full((2, 64, k), p - 1, dtype=torch.int64, device=cuda)
+        b = torch.full((2, k, 64), p - 1, dtype=torch.int64, device=cuda)
+        got = mm._launch(a, b, p=p, instance="tensor_core")
+        assert bool((got == (pow(p - 1, 2, p) * k) % p).all()), k
+
+
+@pytest.mark.gpu
+def test_gpu_modmatmul_chooser_routes_and_counts(cuda):
+    """Full 64x64 tiles take the tensor cores, the tags shape (N = 1) the
+    CUDA cores with split K; each launch counted under its instance."""
+    p = P_DEFAULT
+    g = torch.Generator(device=cuda)
+    g.manual_seed(11)
+    reset_launch_counts()
+    a, b = _rand(g, p, (3, 128, 200)), _rand(g, p, (3, 200, 64))
+    assert torch.equal(modmatmul_batched(a, b, p=p), modmatmul_plain(a, b, p=p))
+    v, r = _rand(g, p, (17, 2**16)), _rand(g, p, (2**16, 1))
+    assert torch.equal(modmatmul(v, r, p=p), modmatmul_plain(v, r, p=p))
+    torch.cuda.synchronize()
+    assert instance_counts()["modmatmul_batched"] == {"tensor_core": 1,
+                                                      "cuda_core": 0}
+    assert instance_counts()["modmatmul"] == {"tensor_core": 0, "cuda_core": 1}
+    with pytest.raises(ValueError, match="unknown modmatmul instance"):
+        mm._launch(a, b, p=p, instance="bogus")
 
 
 @pytest.mark.gpu
@@ -155,10 +215,16 @@ def test_gpu_flash_kernel_equals_plain(cuda, case):
     got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1
+    served = "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+    assert instance_counts()["flash_attention"][served] == 1
     assert flash_attention_plain.calls == plain0
     want = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     assert got.dtype == dtype and got.shape == (b, t, hq, d)
     assert agreement(got, want)["ok"], agreement(got, want)
+    if dtype == torch.bfloat16:    # the earlier instance on the same operands
+        old = fa._launch(q, k, v, instance="mma_sync", causal=causal,
+                         q_offset=q_offset)
+        assert agreement(old, want)["ok"], agreement(old, want)
 
 
 @pytest.mark.gpu
@@ -171,9 +237,11 @@ def test_gpu_flash_bf16_unaligned_operands(cuda, d):
     big = torch.randn((2, 150, 12, d + 1), generator=g, device=cuda)
     big = big.to(torch.bfloat16)
     q, k, v = big[:, :, :8, 1:], big[:, :, 8:10, 1:], big[:, :, 10:, 1:]
+    reset_launch_counts()
     got = flash_attention(q, k, v)
     want = flash_attention_plain(q, k, v)
     assert agreement(got, want)["ok"], agreement(got, want)
+    assert instance_counts()["flash_attention"]["mma_sync"] == 1
 
 
 @pytest.mark.gpu
@@ -184,6 +252,16 @@ def test_gpu_flash_refuses_what_the_kernel_does_not_take(cuda):
     y = torch.zeros((1, 4, 64, 2), device=cuda).transpose(2, 3)   # D strided
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention(y, y, y)
+    # the wgmma instance refuses rows that are not 16-byte aligned, and no
+    # instance takes the other dtype or an unknown name
+    big = torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(_build.KernelLaunchError, match="wgmma"):
+        fa._launch(big[..., 1:], big[..., 1:], big[..., 1:], instance="wgmma")
+    z = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="cuda_core"):
+        fa._launch(z, z, z, instance="cuda_core")
+    with pytest.raises(ValueError, match="unknown flash_attention instance"):
+        fa._launch(z, z, z, instance="bogus")
 
 
 def _reduced_on(device):
@@ -202,10 +280,31 @@ def test_gpu_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
     logits, cache = tr.prefill(cfg, params, toks.to(cuda))
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == cfg.n_layers
+    # the reduced model is fp32: the CUDA-core instance (bf16 takes wgmma,
+    # held at full width in chip_smoke.py)
+    assert instance_counts()["flash_attention"]["cuda_core"] == cfg.n_layers
     assert flash_attention_plain.calls == plain0
     want, want_cache = tr.prefill(cfg, cpu_params, toks)
     torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(cache.k.cpu(), want_cache.k, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_prefill_takes_the_wgmma_instance(cuda):
+    """A bf16 model with llama3.2-1b's head dim: gqa_project's q, k, v are
+    16-byte aligned, so every layer's attention runs in the wgmma
+    instance."""
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-1b")),
+                              head_dim=64, dtype="bfloat16")
+    params = tr.init_params(cfg, 0, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab,
+                                                              (2, 300)))
+    reset_launch_counts()
+    logits, _ = tr.prefill(cfg, params, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert instance_counts()["flash_attention"] == {
+        "wgmma": cfg.n_layers, "mma_sync": 0, "cuda_core": 0}
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.gpu
