@@ -18,7 +18,11 @@
    and timed beside it in the same run through the module's private
    launcher; cuBLAS's int8 rate on the same 16 limb products
    (``torch._int_mm``, which the port never calls) is printed as a
-   yardstick.
+   yardstick.  ``polyeval`` is held and timed at the four launches of one
+   main-path block in the forms the stages pass (encode twice; the exchange
+   as two sources stacked; decode through a device index of survivor
+   rows), each beside its bytes bound, and held on ragged shapes, odd C,
+   rows that are not 16-byte aligned and the all-(p-1) corner at K = 19.
 4. Holds the flash-attention kernel against its plain version at the
    serve path's prefill shapes (llama3.2-1b: Hq 32, Hkv 8, D 64, bf16,
    T = 2048 and 512), a ragged T, T != S with ``q_offset``, non-causal and
@@ -36,9 +40,10 @@
    t^2+z = 6 of them, and on floats equal to the float64 product of the
    operands as the field encodes them; checks from the launch counters
    that every product ran in the kernels, all 63 worker products in the
-   tensor-core instance.
+   tensor-core instance and 4 polyeval launches per block (252).
    A ``torch.profiler`` table of one more call shows where its device time
-   goes.
+   goes, and that no torch elementwise pass runs over a block's
+   ``[17, 1024^2]`` I-points (the exchange folds inside ``polyeval``).
 6. Drives the ``tags`` stage (the W = 1 ``modmatmul``, CUDA-core instance
    with split K) on the main path's plan.
 7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
@@ -105,6 +110,12 @@ SERVE_LANES, SERVE_BLOCK = 4, 16
 # Engine.generate calls of (batch, prompt tokens, max_new)
 RWKV_LAYERS, RWKV_HEADS, RWKV_HEAD = 24, 32, 64
 RWKV_CALLS = ((4, 2048, 32), (1, 1000, 16))
+# torch's elementwise operators (aten names, in-place forms included): none
+# of them may run over the I-points of a main-path block
+ELEMENTWISE = {"add", "sub", "mul", "where", "remainder", "bitwise_and",
+               "bitwise_right_shift", "__rshift__", "__and__", "ge", "lt",
+               "fmod"}
+
 # decode from a prefill of T tokens against a prefill of T + 1, in fp32:
 # the next-token logits may differ by this share of their rms
 STATE_TOL = 1e-3
@@ -117,6 +128,16 @@ class SmokeFailure(RuntimeError):
 def require(ok, what):
     if not ok:
         raise SmokeFailure(what)
+
+
+def elementwise(key):
+    """Whether a profiler key names one of :data:`ELEMENTWISE`."""
+    if not key.startswith("aten::"):
+        return False
+    name = key[len("aten::"):]
+    if name.endswith("_") and not name.endswith("__"):
+        name = name[:-1]                   # in place: add_ -> add
+    return name in ELEMENTWISE
 
 
 def limbs(p):
@@ -800,10 +821,11 @@ def main(argv=None):
     def full(p, *shape):
         return torch.full(shape, p - 1, dtype=torch.int64, device=dev)
 
-    def compare(what, kern, plain, operands, p, iters=5, want=None):
-        """``kern(*operands, p=p)`` vs ``plain(*operands, p=p)``: equal
-        (and equal to ``want`` when given); timed when ``iters``."""
-        got, ref = kern(*operands, p=p), plain(*operands, p=p)
+    def compare(what, kern, plain, operands, p, iters=5, want=None, **kw):
+        """``kern(*operands, p=p, **kw)`` vs ``plain(*operands, p=p,
+        **kw)``: equal (and equal to ``want`` when given); timed when
+        ``iters``."""
+        got, ref = kern(*operands, p=p, **kw), plain(*operands, p=p, **kw)
         torch.cuda.synchronize()
         require(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} "
                 f"!= {tuple(ref.shape)}")
@@ -814,8 +836,9 @@ def main(argv=None):
         rec = {"max_abs_err": err}
         note = ""
         if iters:
-            rec["ms"] = time_ms(torch, lambda: kern(*operands, p=p), iters)
-            rec["plain_ms"] = time_ms(torch, lambda: plain(*operands, p=p), iters)
+            rec["ms"] = time_ms(torch, lambda: kern(*operands, p=p, **kw), iters)
+            rec["plain_ms"] = time_ms(torch, lambda: plain(*operands, p=p, **kw),
+                                      iters)
             note = f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
         print(f"  {what}: equal{note}", flush=True)
         return rec
@@ -832,8 +855,19 @@ def main(argv=None):
 
     blk = 1024                              # m/t = m/s at m = 2048
     col = blk * blk                         # flattened block: C = (m/t)^2
-    main_pe = [(17, 6, col), (17, 6, col), (17, 17, col), (17, 2, col),
-               (4, 6, col)]                 # encode A, B; G-mix; mask; decode
+
+    def pe_main(p):
+        """One block's four polyeval launches, in the forms the stages pass
+        them: (what, vand, terms, rows, (N, K, C))."""
+        i_pts = rand(p, 17, col)
+        alive = torch.sort(torch.randperm(17, generator=gen, device=dev)[:6])[0]
+        for ab in "AB":
+            yield (f"encode {ab} [17,6] @ [6,{col}]", rand(p, 17, 6),
+                   rand(p, 6, col), None, (17, 6, col))
+        yield (f"exchange [17,17+2] @ (h [17,{col}], mask [2,{col}])",
+               rand(p, 17, 19), (i_pts, rand(p, 2, col)), None, (17, 19, col))
+        yield (f"decode [4,6] @ rows {alive.tolist()} of [17,{col}]",
+               rand(p, 4, 6), i_pts, alive, (4, 6, col))
     require(mm_mod.choose_instance(17, blk, blk, blk) == "tensor_core",
             "the main path's worker product does not take the tensor cores")
     rec = {}
@@ -874,22 +908,49 @@ def main(argv=None):
         rec[("modmatmul", p)] = dict(r, work=mm_work(1, 17, col, 1, p))
         compare("modmatmul ragged [33,70]@[70,45]", *mm1,
                 (rand(p, 33, 70), rand(p, 70, 45)), p, iters=0)
-        pe = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "work": (0, 0)}
-        for n, k, c in main_pe:
-            r = compare(f"polyeval [{n},{k}]@[{k},{c}]", *pev,
-                        (rand(p, n, k), rand(p, k, c)), p)
+        pe = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "work": (0, 0),
+              "launches": []}
+        for what, vand, terms, idx, (n, k, c) in pe_main(p):
+            r = compare(f"polyeval {what}", *pev, (vand, terms), p, iters=10,
+                        rows=idx)
             w = pe_work(n, k, c, p)
+            bms = bound(*w)[0]
+            print(f"    {r['ms']:.4f} ms against a bound of {bms:.4f} ms "
+                  f"(bytes, {w[0] / 1e6:.1f} MB): {100 * bms / r['ms']:.1f} % "
+                  f"of the bound", flush=True)
             pe = {"ms": pe["ms"] + r["ms"],
                   "plain_ms": pe["plain_ms"] + r["plain_ms"],
                   "max_abs_err": max(pe["max_abs_err"], r["max_abs_err"]),
-                  "work": (pe["work"][0] + w[0], pe["work"][1] + w[1])}
+                  "work": (pe["work"][0] + w[0], pe["work"][1] + w[1]),
+                  "launches": pe["launches"] + [
+                      {"launch": what, "ms": r["ms"], "bound_ms": bms}]}
+            del vand, terms, idx
+        pe_bound = bound(*pe["work"])[0]
+        print(f"  polyeval, one block's 4 launches: {pe['ms']:.4f} ms against "
+              f"a bound of {pe_bound:.4f} ms ({100 * pe_bound / pe['ms']:.1f} "
+              f"% of the bound)", flush=True)
         rec[("polyeval", p)] = pe
-        for n, k, c in [(5, 40, 1000), (40, 70, 3333), (1, 1, 5)]:
+        for n, k, c in [(5, 40, 1000), (40, 70, 3333), (1, 1, 5), (70, 9, 777)]:
             compare(f"polyeval ragged [{n},{k}]@[{k},{c}]", *pev,
                     (rand(p, n, k), rand(p, k, c)), p, iters=0)
-        compare("polyeval all-(p-1) corner, K=9", *pev,
-                (full(p, 17, 9), full(p, 9, 4096)), p, iters=0,
-                want=pow(p - 1, 2, p) * 9 % p)
+        compare("polyeval exchange form, odd C: [17,19] @ ([17,1001], [2,1001])",
+                *pev, (rand(p, 17, 19), (rand(p, 17, 1001), rand(p, 2, 1001))),
+                p, iters=0)
+        compare("polyeval decode form, odd C: [4,6] @ rows of [17,3333]", *pev,
+                (rand(p, 4, 6), rand(p, 17, 3333)), p, iters=0,
+                rows=torch.tensor([1, 4, 5, 9, 13, 16], device=dev))
+        shifted = rand(p, 19, 3001)[:, 1:]     # every row 8 bytes off 16
+        compare("polyeval rows not 16-byte aligned: [17,19] @ views of one "
+                "[19,3001] tensor", *pev,
+                (rand(p, 17, 19), (shifted[:17], shifted[17:])), p, iters=0)
+        compare("polyeval all-(p-1) corner, exchange form, K=19", *pev,
+                (full(p, 17, 19), (full(p, 17, 4097), full(p, 2, 4097))), p,
+                iters=0, want=pow(p - 1, 2, p) * 19 % p)
+        compare("polyeval all-(p-1) corner, decode form, K=19", *pev,
+                (full(p, 4, 19), full(p, 25, 4096)), p, iters=0,
+                want=pow(p - 1, 2, p) * 19 % p,
+                rows=torch.arange(3, 22, device=dev))
+        del shifted
         del ab
         torch.cuda.empty_cache()
 
@@ -1035,7 +1096,7 @@ def main(argv=None):
 
     def drive(what, sess, a, b, **kw):
         """One session call with the counters zeroed just before it and
-        read just after; checks 63 / 315 launches and 63 blocks."""
+        read just after; checks 63 / 252 launches and 63 blocks."""
         blocks0 = sess.stats["blocks"]
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1050,7 +1111,7 @@ def main(argv=None):
               f"{instance_counts()['modmatmul_batched']}", flush=True)
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
-                           "polyeval": 5 * MAIN_BLOCKS, "flash_attention": 0,
+                           "polyeval": 4 * MAIN_BLOCKS, "flash_attention": 0,
                            "rwkv6": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
@@ -1129,16 +1190,27 @@ def main(argv=None):
           f"{peak / 2**30:.2f} GiB (max_memory_allocated)", flush=True)
     kern_ms = MAIN_BLOCKS * (rec[("modmatmul_batched", p)]["ms"]
                              + rec[("polyeval", p)]["ms"])
-    print(f"  kernel time per call ({MAIN_BLOCKS} x (modmatmul_batched + 5 "
+    print(f"  kernel time per call ({MAIN_BLOCKS} x (modmatmul_batched + 4 "
           f"polyeval), from the checks above): {kern_ms:.1f} ms = "
           f"{100 * kern_ms / (1e3 * min(walls)):.1f}% of the fastest call",
           flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         sess.matmul(a, b, encoded=True)
         torch.cuda.synchronize()
+    # the exchange folds inside polyeval: no torch elementwise pass may touch
+    # the [17, 1024^2] I-points (a fold in torch would be add, shifts, and,
+    # where)
+    big = ([spec.n_workers, col], [spec.n_workers, blk, blk])
+    passes = [(e.key, e.count) for e in prof.key_averages(group_by_input_shape=True)
+              if elementwise(e.key)
+              and any(list(sh) in big for sh in e.input_shapes if sh)]
+    print(f"torch elementwise passes over [{spec.n_workers}, {col}] in one call: "
+          f"{passes or 'none'}", flush=True)
+    require(not passes, f"elementwise torch passes over the I-points: {passes}")
     # device-side rows only (kernels and copies): the operator rows above
     # them carry the same time again
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -1209,8 +1281,9 @@ def main(argv=None):
         "polyeval": ("src/repro_torch/kernels/csrc/polyeval.cu",
                      "src/repro/kernels/polyeval.py:33",
                      main_counts["polyeval"],
-                     "one block's 5 launches: [17,6],[17,6],[17,17],[17,2],"
-                     f"[4,6] @ [K,{col}]"),
+                     f"one block's 4 launches: [17,6] @ [6,{col}] twice; "
+                     f"[17,17+2] @ (h [17,{col}], mask [2,{col}]); [4,6] @ 6 "
+                     f"rows of [17,{col}] by index"),
         "modmatmul": ("src/repro_torch/kernels/csrc/modmatmul.cu",
                       "src/repro/kernels/modmatmul.py:42",
                       tags_counts["modmatmul"],
@@ -1238,6 +1311,12 @@ def main(argv=None):
                         "earlier": r31["earlier"]}})
         elif name == "modmatmul":
             kernels[-1]["instance"] = "cuda_core"
+        else:
+            r31 = rec[(name, P_MERSENNE31)]
+            kernels[-1].update({
+                "per_launch": r["launches"],
+                "m31": {"ms": r31["ms"], "plain_ms": r31["plain_ms"],
+                        "bound_ms": bound(*r31["work"])[0]}})
     fr = flash_rec[2048]
     bms, by = bound(*fr["work"], fr["peak"])
     small = flash_rec[512]

@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the tensor-core kernels
-// (flash_attention.cu's wgmma instance, modmatmul_tc.cu): mbarriers, TMA
-// loads, wgmma shared-memory descriptors and the wgmma instructions the
-// kernels issue, plus the host-side tensor-map encoder.
+// Hopper building blocks shared by the kernels (flash_attention.cu's wgmma
+// instance, modmatmul_tc.cu, polyeval.cu, rwkv6.cu): mbarriers, TMA tile
+// loads and 1-D bulk copies, wgmma shared-memory descriptors and the wgmma
+// instructions the kernels issue, plus the host-side tensor-map encoder.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, reached through
 // the CUDA runtime's entry-point lookup (cudaGetDriverEntryPoint, or
@@ -90,6 +90,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 1-D bulk copy (no tensor map): `bytes` from global src to shared dst,
+// counted against bar's transaction count.  src, dst and bytes must all be
+// multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses (generic proxy)
+// before its later bulk copies (async proxy) into the same buffers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory matrix descriptor.  `swizzle` is the byte span of
@@ -260,7 +278,8 @@ inline EncodeTiled encode_tiled() {
 
 // A tiled tensor map of `rank` dims (innermost first; strides in bytes for
 // dims 1..rank-1), loaded in boxes of `box` elements with the given
-// swizzle span (128 or 64 bytes) and zero fill outside the tensor.
+// swizzle span (128 or 64 bytes; 0 for none) and zero fill outside the
+// tensor.
 // Returns false when cuTensorMapEncodeTiled refuses it.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                      const void* base, const uint64_t* dims,
@@ -277,7 +296,9 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUtensorMapSwizzle sw =
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : (swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_NONE);
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
             s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -18,10 +18,13 @@ terms of about 0.25, where an fp32 sum in any order is 1e-3 off
 relatively, ten times the element limit of :func:`agreement`.
 
 Port of ``repro/kernels/rwkv6.py``, which returns no state.  The CUDA
-kernel (``csrc/rwkv6.cu``) gives each block one (batch, head, 16-column
-slice of V), keeps that slice of the state in registers for the whole
-sequence, stages tiles of steps in shared memory and bounds its loop at
-T, so no padded step decays the state; the source states its bound and
+kernel (``csrc/rwkv6.cu``) gives each block one (batch, head, slice of V:
+64 columns when B·H fills the card, down to 8 when it does not) and
+keeps that slice of the state in registers for the whole sequence.  Two
+producer warps bulk-copy tiles of steps into shared memory ahead of use
+and turn them into fp32 r, k, v, the decay and the fp64 bonus scalar;
+the consumer warps run only the recurrence.  The loop is bounded at T,
+so no padded step decays the state; the source states its bound and
 design.  K = V = 64 on the card.
 
 The wrapper checks its operands, allocates the outputs with

@@ -39,7 +39,6 @@ import torch
 from ..core.age import AGECode, GeneralizedPolyCode, optimal_age_code, polydot_code
 from ..kernels import modmatmul as _kmm
 from ..kernels import polyeval as _kpe
-from ..kernels.barrett import mod_p
 from .errors import MaskShapeError, ShapeContractError
 from .field import Field, as_int64, resolve_device
 from .lagrange import (
@@ -62,7 +61,8 @@ PlanKey = Tuple
 # keeping every straggler pattern a serving fleet realistically revisits hot
 SOLVE_CACHE_SIZE = 128
 
-_TABLES = ("vand_a", "vand_b", "g_mix_t", "vand_g_secret", "decode_rows")
+_TABLES = ("vand_a", "vand_b", "g_mix_t", "vand_g_secret", "exchange",
+           "decode_rows")
 
 
 def _powers_a(code: GeneralizedPolyCode) -> np.ndarray:
@@ -102,9 +102,12 @@ class ProtocolStages:
 
     On a CUDA device every product is a kernel launch: ``worker_compute``
     goes to ``modmatmul_batched``, the skinny-K table products of
-    ``encode``/``exchange``/``decode`` to ``polyeval``, and ``tags``'s
-    product to ``modmatmul``.  On the CPU the same wrappers run their plain
-    versions, which keep the reference stages' dispatch rule.
+    ``encode``/``exchange``/``decode`` to ``polyeval`` (four launches per
+    block: the exchange reads ``[h; mask]`` against the plan's
+    ``[G-mix | mask table]`` in one, the fold inside the kernel, and decode
+    reads the survivors' rows in place), and ``tags``'s product to
+    ``modmatmul``.  On the CPU the same wrappers run their plain versions,
+    which keep the reference stages' dispatch rule.
     """
 
     encode: Callable
@@ -135,7 +138,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
     field = plan.field
     tab = plan.tables(device)
     va, vb = tab["vand_a"], tab["vand_b"]
-    gm_t, vg, dec = tab["g_mix_t"], tab["vand_g_secret"], tab["decode_rows"]
+    mix, dec = tab["exchange"], tab["decode_rows"]
     default_idx = torch.arange(t2z, device=device)
 
     def table_mm(v, x):
@@ -164,13 +167,18 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
     def exchange(h, gen, *, mask_sum=None):
         mask_sum = (field.random(gen, (z, mt, mt)) if mask_sum is None
                     else as_int64(mask_sum, device))
-        i_pts = table_mm(gm_t, h.reshape(n, mt * mt))
-        i_pts = mod_p(i_pts + table_mm(vg, mask_sum.reshape(z, mt * mt)), p)
+        # G-mix and mask term in one product: [g_mix_t | vand_g_secret]
+        # against the H-points stacked on the mask
+        i_pts = _kpe.polyeval(
+            mix, (h.reshape(n, mt * mt).contiguous(),
+                  mask_sum.reshape(z, mt * mt).contiguous()), p=p)
         return i_pts.reshape(n, mt, mt)
 
     def decode(i_pts, idx, rows):
-        i_sel = i_pts.index_select(0, idx)
-        y_blocks = table_mm(rows, i_sel.reshape(t2z, mt * mt))
+        # the survivors' rows, gathered by the kernel
+        y_blocks = _kpe.polyeval(
+            rows, i_pts.reshape(i_pts.shape[0], mt * mt).contiguous(), p=p,
+            rows=idx)
         grid = y_blocks.reshape(t, t, mt, mt)                 # [l, i, r, c]
         return grid.permute(1, 2, 0, 3).reshape(m, m)
 
@@ -257,13 +265,17 @@ class ProtocolPlan:               # the cache's contract is `is`, not `==`)
     def tables(self, device=None) -> Dict[str, torch.Tensor]:
         """The stage tables as int64 tensors on ``device`` (copied once per
         device): ``vand_a``, ``vand_b``, ``g_mix_t`` (the G-mix transposed,
-        ``[N', N]``), ``vand_g_secret`` and ``decode_rows``."""
+        ``[N', N]``), ``vand_g_secret``, ``exchange`` (``[g_mix_t |
+        vand_g_secret]``, ``[N', N + z]``: the exchange's one product) and
+        ``decode_rows``."""
         dev = resolve_device(device)
 
         def build():
             host = {"vand_a": self.vand_a, "vand_b": self.vand_b,
                     "g_mix_t": self.g_mix.T.copy(),
                     "vand_g_secret": self.vand_g_secret,
+                    "exchange": np.concatenate(
+                        [self.g_mix.T, self.vand_g_secret], axis=1),
                     "decode_rows": self.decode_rows}
             return {k: torch.from_numpy(np.ascontiguousarray(host[k])).to(dev)
                     for k in _TABLES}

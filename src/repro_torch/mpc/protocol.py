@@ -333,12 +333,11 @@ class AGECMPCProtocol:
         f_b = _kpe.polyeval(tab["vand_b"], terms_b, p=p).reshape(n, ms, mt)
         h = self.phase2_compute(f_a, f_b, use_kernel=True)
         r_mask = self.field.random(gen, (n, z, mt, mt))
-        i_pts = _kpe.polyeval(tab["g_mix_t"], h.reshape(n, mt * mt), p=p)
         mask_sum = mod_p(r_mask.sum(dim=0), p)
-        i_pts = mod_p(
-            i_pts + _kpe.polyeval(tab["vand_g_secret"],
-                                  mask_sum.reshape(z, mt * mt), p=p), p)
-        y_blocks = _kpe.polyeval(rows_t, i_pts.index_select(0, idx_t), p=p)
+        i_pts = _kpe.polyeval(tab["exchange"], (h.reshape(n, mt * mt),
+                                                mask_sum.reshape(z, mt * mt)),
+                              p=p)
+        y_blocks = _kpe.polyeval(rows_t, i_pts, p=p, rows=idx_t)
         grid = y_blocks.reshape(t, t, mt, mt)
         return grid.permute(1, 2, 0, 3).reshape(m, m)
 

@@ -139,13 +139,51 @@ def test_gpu_polyeval_kernel_equals_plain(cuda, p):
     g = torch.Generator(device=cuda)
     g.manual_seed(p % 977)
     reset_launch_counts()
+    # row groups of 1, 2 and 4 threads, several passes of rows (N > 64),
+    # ragged tiles, odd C, one column
     shapes = [(17, 6, 4096), (17, 17, 4096), (17, 2, 999), (4, 6, 4096),
-              (40, 70, 333), (1, 1, 5)]
+              (40, 70, 333), (1, 1, 5), (64, 9, 1025), (70, 3, 513),
+              (33, 19, 1)]
     for n, k, c in shapes:
         v, t = _rand(g, p, (n, k)), _rand(g, p, (k, c))
         assert torch.equal(polyeval(v, t, p=p), polyeval_plain(v, t, p=p))
     torch.cuda.synchronize()
     assert launch_counts()["polyeval"] == len(shapes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_polyeval_operand_forms_equal_plain(cuda, p):
+    """The survivors' rows through a device index, two sources stacked,
+    rows whose starts are not 16-byte aligned (odd C, a column slice),
+    and every element p-1 at K = 19: all equal to the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(p % 991)
+    reset_launch_counts()
+    cases = []
+    for c in (4096, 1001, 1):                  # odd C: rows alternate
+        src = _rand(g, p, (17, c))
+        idx = torch.tensor([0, 2, 3, 7, 11, 16], device=cuda)
+        cases.append((_rand(g, p, (4, 6)), src, idx))
+        cases.append((_rand(g, p, (17, 19)),
+                      (_rand(g, p, (17, c)), _rand(g, p, (2, c))), None))
+    big = _rand(g, p, (19, 1300))
+    view = big[:, 1:1000]                      # every row 8 bytes off
+    assert view.data_ptr() % 16 == 8
+    cases.append((_rand(g, p, (17, 19)), (view[:17], view[17:]), None))
+    cases.append((_rand(g, p, (17, 10)), view, torch.arange(
+        18, 8, -1, device=cuda)))
+    full = torch.full((19, 2051), p - 1, dtype=torch.int64, device=cuda)
+    vfull = torch.full((17, 19), p - 1, dtype=torch.int64, device=cuda)
+    cases.append((vfull, (full[:17], full[17:]), None))
+    cases.append((vfull, full, torch.arange(19, device=cuda)))
+    for vand, terms, idx in cases:
+        got = polyeval(vand, terms, p=p, rows=idx)
+        assert torch.equal(got, polyeval_plain(vand, terms, p=p, rows=idx))
+    corner = (pow(p - 1, 2, p) * 19) % p
+    assert bool((got == corner).all())
+    torch.cuda.synchronize()
+    assert launch_counts()["polyeval"] == len(cases)
 
 
 @pytest.mark.gpu
@@ -173,7 +211,7 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         connect(spec, device="cpu", mode=mode).matmul(a, b, encoded=True).numpy(),
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
-                      "polyeval": 5 * blocks, "flash_attention": 0,
+                      "polyeval": 4 * blocks, "flash_attention": 0,
                       "rwkv6": 0}
 
 
@@ -327,16 +365,25 @@ RWKV_CASES = [
     (2, 37, 3, torch.float32, -6.0, True, True),        # ragged, strided
     (1, 1, 2, torch.float32, 0.0, False, False),        # one step
     (3, 64, 5, torch.float32, 1.5, False, True),        # one whole tile
-]
+    (1, 1000, 32, torch.bfloat16, -6.0, False, False),  # the served [1,1000]
+    (1, 1, 1, torch.bfloat16, -6.0, True, False),       # T = 1, B*H = 1
+    (1, 333, 1, torch.bfloat16, 0.0, True, False),      # B*H = 1, ragged T
+    (2, 100, 40, torch.bfloat16, -6.0, False, False),   # 16-column slices
+    (2, 77, 4, torch.float32, -6.0, True, "odd"),       # rows not 16-byte
+    (1, 70, 3, torch.bfloat16, 0.0, False, "odd"),      # aligned: copied by
+]                                                       # ordinary loads
 
 
 def _wkv_operands(g, b, t, h, dtype, w_mean, strided):
     dev = g.device
     if strided:   # r, k, v, w as views into one fused [B, T, H, 4*64]
-        fused = torch.randn((b, t, h, 4 * 64), generator=g, device=dev)
-        r, k, v, w = fused.to(dtype).split(64, dim=-1)
+        # ("odd": one element more, so no row starts 16-byte aligned)
+        extra = 1 if strided == "odd" else 0
+        fused = torch.randn((b, t, h, 4 * 64 + extra), generator=g, device=dev)
+        r, k, v, w = fused.to(dtype)[..., extra:].split(64, dim=-1)
         w = w + w_mean
         assert not r.is_contiguous()
+        assert (r.data_ptr() % 16 != 0) == (strided == "odd")
     else:
         r, k, v, w = (torch.randn((b, t, h, 64), generator=g, device=dev)
                       for _ in range(4))
