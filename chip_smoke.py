@@ -44,8 +44,27 @@
    A ``torch.profiler`` table of one more call shows where its device time
    goes, and that no torch elementwise pass runs over a block's
    ``[17, 1024^2]`` I-points (the exchange folds inside ``polyeval``).
-6. Drives the ``tags`` stage (the W = 1 ``modmatmul``, CUDA-core instance
-   with split K) on the main path's plan.
+6. Drives the ``tags`` stage (the W = 1 ``modmatmul``, its ``skinny``
+   instance) on the main path's plan.
+6b. The batched engine and Byzantine decode on the card.  Holds the
+   ``skinny`` instance against its plain version (``torch.equal``) at the
+   MAC tags' ``[17,2^20]@[2^20,1]`` and an 8-lane wave's
+   ``[8,17,2^20]@[8,2^20,1]``, both primes, a ragged (odd) K and the
+   all-(p-1) corner, timed beside the plain version, the earlier
+   ``cuda_core`` instance and the bytes bound.  Then serves the full-width
+   lm_head (p = 2^26-5, encoded) through three batched sessions: (a) the
+   default policy (width 1, the fused path), (b) ``adversaries=1`` with
+   8-lane waves (``max_batch=8, wave_scalars=None``), (c) the same with a
+   ``FaultInjector`` that tampers one slot in one round and corrupts one
+   tag in another.  Each must equal ``(A @ B) mod p``; per wave the
+   launches are 3 ``polyeval`` + 1 ``modmatmul_batched`` (tensor cores)
+   for the front, 2 ``skinny`` for the tags and 1 ``polyeval`` per
+   survivor pattern; (c) shows its corrections, evictions and the
+   injector's log equal to the schedule.  Prints wall times beside the
+   local backend's, peak memory and a profiler table of one verified
+   call.  Last, ``sess.fail`` takes (a)'s pool below N, the engine
+   re-tunes through ``ElasticPool.retune`` -> ``autotune.retune_spec``, and
+   the next call is still exact.
 7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
    drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
    lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
@@ -473,6 +492,250 @@ def rwkv_phase(torch, np, dev, seed, gen):
     }
 
 
+def skinny_checks(torch, dev, gen, sms):
+    """The ``skinny`` instance (``csrc/modmatmul_skinny.cu``) against its
+    plain version, ``torch.equal``, at the MAC tags' shape, an 8-lane wave,
+    a ragged (odd) K and the all-(p-1) corner, both primes; timed with
+    CUDA events beside the plain version, the earlier ``cuda_core``
+    instance and the bytes bound.  Returns the records for the ``kernels``
+    line, keyed ``("modmatmul", p)`` and ``("modmatmul_wave", p)``."""
+    from repro_torch.kernels import modmatmul as mm_mod
+    from repro_torch.kernels.modmatmul import (
+        choose_instance,
+        modmatmul,
+        modmatmul_batched,
+        modmatmul_plain,
+        skinny_blocks,
+        skinny_rows,
+    )
+    from repro_torch.mpc import P_DEFAULT, P_MERSENNE31
+
+    col = 1024 * 1024
+
+    def rand(p, *shape):
+        return torch.randint(0, p, shape, generator=gen, device=dev)
+
+    def hold(what, kern, a, b, p, iters=0, want=None):
+        got, ref = kern(a, b, p=p), modmatmul_plain(a, b, p=p)
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and torch.equal(got, ref),
+                f"{what}: kernel != plain")
+        if want is not None:
+            require(bool((got == want).all()), f"{what}: != closed form")
+        rec = {"max_abs_err": 0}
+        if iters:
+            rec["ms"] = time_ms(torch, lambda: kern(a, b, p=p), iters)
+            rec["device_ms"] = graph_ms(torch, lambda: kern(a, b, p=p), iters)
+            rec["plain_ms"] = time_ms(torch, lambda: modmatmul_plain(a, b, p=p),
+                                      3)
+        print(f"  {what}: equal", flush=True)
+        return rec
+
+    def cuda_core(a, b, p):
+        return mm_mod._launch(a[None], b[None], p=p, instance="cuda_core")[0]
+
+    require(choose_instance(1, 17, col, 1) == "skinny"
+            and choose_instance(8, 17, col, 1) == "skinny",
+            "the tags' product does not take the skinny instance")
+    out = {}
+    for p in (P_DEFAULT, P_MERSENNE31):
+        print(f"skinny instance checks, p = {p} ({skinny_rows(17, 1)} rows a "
+              f"block; {skinny_blocks(1, 17, col, 1, sms)} blocks share K at "
+              f"W = 1, {skinny_blocks(8, 17, col, 1, sms)} per lane at W = 8):",
+              flush=True)
+        a, b = rand(p, 17, col), rand(p, col, 1)
+        r = hold(f"modmatmul [17,{col}]@[{col},1] (the tags; skinny, chosen)",
+                 modmatmul, a, b, p, iters=20)
+        old = hold(f"modmatmul [17,{col}]@[{col},1] (cuda_core, the earlier "
+                   f"instance, split K)", cuda_core, a, b, p, iters=5)
+        w = mm_work(1, 17, col, 1, p)
+        bms = bound(*w)[0]
+        print(f"    skinny {r['ms']:.4f} ms over a loop of launches, "
+              f"{r['device_ms']:.4f} ms of device time in a CUDA graph; "
+              f"cuda_core {old['ms']:.4f} / {old['device_ms']:.4f} ms; plain "
+              f"{r['plain_ms']:.4f} ms; bound {bms:.4f} ms (bytes, "
+              f"{w[0] / 1e6:.1f} MB): {100 * bms / r['device_ms']:.1f} % of the "
+              f"bound, {old['device_ms'] / r['device_ms']:.2f}x faster than "
+              f"cuda_core", flush=True)
+        out[("modmatmul", p)] = dict(r, work=w, earlier={
+            "instance": "cuda_core", "ms": old["ms"],
+            "device_ms": old["device_ms"],
+            "speedup": old["device_ms"] / r["device_ms"]})
+        del a, b
+        a, b = rand(p, 8, 17, col), rand(p, 8, col, 1)
+        r = hold(f"modmatmul_batched [8,17,{col}]@[8,{col},1] (an 8-lane "
+                 f"wave's tags; skinny)", modmatmul_batched, a, b, p, iters=10)
+        w = mm_work(8, 17, col, 1, p)
+        bms = bound(*w)[0]
+        print(f"    skinny {r['ms']:.4f} ms over a loop of launches, "
+              f"{r['device_ms']:.4f} ms in a CUDA graph; plain "
+              f"{r['plain_ms']:.4f} ms; bound {bms:.4f} ms (bytes, "
+              f"{w[0] / 1e9:.3f} GB): {100 * bms / r['device_ms']:.1f} % of "
+              f"the bound", flush=True)
+        out[("modmatmul_wave", p)] = dict(r, work=w)
+        del a, b
+        k = col - 3                            # odd K: the scalar loads
+        hold(f"modmatmul ragged [17,{k}]@[{k},1]", modmatmul,
+             rand(p, 17, k), rand(p, k, 1), p)
+        hold(f"modmatmul_batched ragged [3,17,{k}]@[3,{k},1]",
+             modmatmul_batched, rand(p, 3, 17, k), rand(p, 3, k, 1), p)
+        full = torch.full((17, col), p - 1, dtype=torch.int64, device=dev)
+        hold(f"modmatmul all-(p-1) corner [17,{col}]@[{col},1]", modmatmul,
+             full, full[0].reshape(col, 1).contiguous(), p,
+             want=pow(p - 1, 2, p) * col % p)
+        del full
+        torch.cuda.empty_cache()
+    return out
+
+
+def batched_phase(torch, np, dev, a, b, local_walls):
+    """The full-width lm_head through the batched backend: (a) the default
+    policy, (b) a verified spec in 8-lane waves, (c) the same under a
+    scripted ``FaultInjector``; then attrition through the autotuner.
+    Each call exact, its launches read per wave with the counters zeroed
+    just before it.  Returns the ``kernels`` line's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.modmatmul import modmatmul_plain
+    from repro_torch.mpc import P_DEFAULT, FaultInjector, MPCSpec, connect
+
+    p = P_DEFAULT
+    want = modmatmul_plain(a, b, p=p)
+
+    def drive(what, sess):
+        eng = sess.backend.engine
+        waves0 = eng.stats["waves"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        y = sess.matmul(a, b, encoded=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, inst = launch_counts(), instance_counts()["modmatmul_batched"]
+        waves = eng.stats["waves"] - waves0
+        require(y.shape == want.shape and torch.equal(y, want),
+                f"{what}: != exact (A @ B) mod p")
+        require(counts["modmatmul"] == 0 and counts["flash_attention"] == 0
+                and counts["rwkv6"] == 0, f"{what}: launches {counts}")
+        require(inst["cuda_core"] == 0 and inst["tensor_core"] == waves,
+                f"{what}: {waves} waves, modmatmul_batched instances {inst}")
+        print(f"  {what}: exact; {wall * 1e3:.1f} ms wall, {waves} waves; "
+              f"per wave {counts['polyeval'] / waves:g} polyeval, "
+              f"{inst['tensor_core'] / waves:g} tensor_core and "
+              f"{inst['skinny'] / waves:g} skinny modmatmul_batched "
+              f"(launches {counts}, instances {inst})", flush=True)
+        return wall, counts, inst, waves
+
+    print(f"batched backend: the lm_head [1,{D_MODEL}] x [{D_MODEL},{VOCAB}] "
+          f"(p = {p}, encoded); the local backend took "
+          f"{[round(x * 1e3, 1) for x in local_walls]} ms per call (phase 5)",
+          flush=True)
+    walls = {"local": [x * 1e3 for x in local_walls]}
+    sess_a = connect(MPCSpec(s=2, t=2, z=2), backend="batched")
+    runs = [drive(f"(a) default policy, call {i}", sess_a) for i in range(2)]
+    for _, counts, inst, waves in runs:
+        require(waves == MAIN_BLOCKS and counts["polyeval"] == 4 * waves
+                and inst["skinny"] == 0,
+                f"(a): {waves} waves, {counts}, {inst}: not the width-1 path")
+    walls["a"] = [r[0] * 1e3 for r in runs]
+
+    verified = MPCSpec(s=2, t=2, z=2, adversaries=1)
+    sess_b = connect(verified, backend="batched", max_batch=8,
+                     wave_scalars=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [drive(f"(b) adversaries=1, 8-lane waves, call {i}", sess_b)
+            for i in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, counts, inst, waves in runs:
+        require(waves == 8 and counts["polyeval"] == 4 * waves
+                and inst["skinny"] == 2 * waves,
+                f"(b): {waves} waves, {counts}, {inst}")
+    walls["b"] = [r[0] * 1e3 for r in runs]
+    skinny_launches = runs[0][2]["skinny"]
+    require(sess_b.stats["corrections"] == 0 and not sess_b._dead,
+            f"(b): honest shares flagged: {sess_b.stats}")
+
+    sched = {5: [(2, "tamper")], 20: [(4, "tag")]}
+    inj = FaultInjector(seed=11, schedule=sched)
+    sess_c = connect(verified, backend="batched", max_batch=8,
+                     wave_scalars=None, injector=inj)
+    wall, counts, inst, waves = drive(
+        f"(c) the same under FaultInjector schedule {sched}", sess_c)
+    # the two waves holding a liar decode two survivor patterns
+    require(waves == 8 and counts["polyeval"] == 4 * waves + 2
+            and inst["skinny"] == 2 * waves,
+            f"(c): {waves} waves, {counts}, {inst}")
+    log = [(5, 2, "tamper"), (20, 4, "tag")]
+    require(inj.log == log, f"(c): injector log {inj.log} != {log}")
+    require(sess_c.stats["corrections"] == 2
+            and sess_c.stats["evicted_devices"] == 2
+            and sess_c._dead == {2, 4},
+            f"(c): stats {sess_c.stats}, dead {sess_c._dead}")
+    print(f"    byzantine_stats {sess_c.backend.byzantine_stats()}, evicted "
+          f"{sorted(sess_c._dead)}, injector log {inj.log}", flush=True)
+    again = drive("(c) next call, liars evicted", sess_c)
+    require(again[1]["polyeval"] == 4 * again[3], f"(c) again: {again[1]}")
+    walls["c"] = [wall * 1e3, again[0] * 1e3]
+    print(f"  wall ms per call: local {[round(x, 1) for x in walls['local']]}, "
+          f"(a) {[round(x, 1) for x in walls['a']]}, (b) "
+          f"{[round(x, 1) for x in walls['b']]}, (c) "
+          f"{[round(x, 1) for x in walls['c']]} (injected, then clean); peak "
+          f"memory of (b) {peak / 2**30:.2f} GiB (max_memory_allocated)",
+          flush=True)
+
+    # where one verified call's device time goes, copies included
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess_b.matmul(a, b, encoded=True)
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")), reverse=True)
+    busy = sum(r[0] for r in rows)
+    copies = [r for r in rows if any(w in r[2].lower() for w in
+                                     ("copy", "cat", "memcpy", "stack"))]
+    print(f"device time of one verified call (b) (torch.profiler): "
+          f"{busy / 1e3:.3f} ms in {sum(r[1] for r in rows)} device events; "
+          f"copies {sum(r[0] for r in copies) / 1e3:.3f} ms in "
+          f"{sum(r[1] for r in copies)}", flush=True)
+    for us, count, key in rows[:14]:
+        print(f"  {us / 1e3:9.3f} ms {100 * us / max(busy, 1):5.1f} %  "
+              f"x{count:<4d} {key[:100]}")
+
+    # attrition: 3 of (a)'s 19 provisioned workers die, the pool drops
+    # below N = 17, and the engine re-tunes through ElasticPool.retune ->
+    # autotune.retune_spec before the next call
+    eng = sess_a.backend.engine
+    sess_a.fail([0, 1, 2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = sess_a.matmul(a, b, encoded=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(torch.equal(y, want), "attrition: != exact (A @ B) mod p")
+    served = list(eng._replans.values())
+    require(eng.stats["replans"] == 1 and eng.stats["retunes"] == 1
+            and len(served) == 1,
+            f"attrition: replans {eng.stats['replans']}, retunes "
+            f"{eng.stats['retunes']}")
+    spec = served[0].spec
+    print(f"  attrition: 3 workers failed, 16 of 19 alive < N = 17; re-tuned "
+          f"to {spec.scheme} s={spec.s} t={spec.t} lam={spec.lam} "
+          f"N={spec.n_workers} at m={spec.m}; exact, {wall * 1e3:.1f} ms wall; "
+          f"stats replans {eng.stats['replans']}, retunes "
+          f"{eng.stats['retunes']}", flush=True)
+    walls["attrition"] = [wall * 1e3]
+    return {"skinny_launches": skinny_launches, "walls": walls,
+            "peak_gib": peak / 2**30}
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -541,11 +804,13 @@ def ptxas_lines(log):
     out, name = [], "?"
     for line in log.splitlines():
         entry = re.search(
-            r"\d((?:[a-z]+\d*_)*kernel)I?((?:Li\d+E|f|13__nv_bfloat16)*)",
+            r"\d((?:[a-z]+\d*_)*kernel)I?((?:Li\d+E|Lb\dE|f|13__nv_bfloat16)*)",
             line)
         if entry and "Compiling entry" in line:
-            args = [a or ("float" if f else "bf16") for a, f, _ in
-                    re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)", entry.group(2))]
+            args = [a or ("true" if b == "1" else "false" if b else
+                          "float" if f else "bf16") for a, b, f, _ in
+                    re.findall(r"Li(\d+)E|Lb(\d)E|(f)|(13__nv_bfloat16)",
+                               entry.group(2))]
             name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         elif "Used" in line or "spill" in line:
             out.append(f"  {name}: {line.split(':', 1)[-1].strip()}")
@@ -771,7 +1036,6 @@ def main(argv=None):
         flash_attention_plain,
     )
     from repro_torch.kernels.modmatmul import (
-        k_splits,
         modmatmul,
         modmatmul_batched,
         modmatmul_plain,
@@ -901,11 +1165,6 @@ def main(argv=None):
         compare("modmatmul_batched all-(p-1) corner, K=20000 (three s32 runs)",
                 *mmb, (full(p, 2, 64, 20000), full(p, 2, 20000, 64)), p,
                 iters=0, want=pow(p - 1, 2, p) * 20000 % p)
-        # W = 1 at the tags stage's shape on the main path's plan
-        r = compare(f"modmatmul [17,{col}]@[{col},1] (tags), K split "
-                    f"{k_splits(1, 17, col, 1, sms)}", *mm1,
-                    (rand(p, 17, col), rand(p, col, 1)), p)
-        rec[("modmatmul", p)] = dict(r, work=mm_work(1, 17, col, 1, p))
         compare("modmatmul ragged [33,70]@[70,45]", *mm1,
                 (rand(p, 33, 70), rand(p, 70, 45)), p, iters=0)
         pe = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "work": (0, 0),
@@ -1115,7 +1374,8 @@ def main(argv=None):
                            "rwkv6": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
-        require(inst == {"tensor_core": MAIN_BLOCKS, "cuda_core": 0},
+        require(inst == {"tensor_core": MAIN_BLOCKS, "skinny": 0,
+                         "cuda_core": 0},
                 f"{what}: modmatmul_batched instances {inst}")
         return y, wall, counts
 
@@ -1237,7 +1497,8 @@ def main(argv=None):
                             "polyeval": 0, "flash_attention": 0,
                             "rwkv6": 0},
             f"tags stage launch counts {tags_counts}")
-    require(instance_counts()["modmatmul"] == {"tensor_core": 0, "cuda_core": 1},
+    require(instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
+                                               "cuda_core": 0},
             f"tags stage instances {instance_counts()['modmatmul']}")
     tags_want = (12345 * modmatmul_plain(i_pts.reshape(spec.n_workers, col),
                                          rvec.reshape(col, 1), p=p)[:, 0]
@@ -1245,7 +1506,13 @@ def main(argv=None):
     require(torch.equal(tags, tags_want), "tags stage != plain")
     print(f"tags stage on the main path's plan: equal to plain, launches "
           f"{tags_counts}", flush=True)
-    del a, b, i_pts, tags, tags_want
+    del i_pts, tags, tags_want
+    torch.cuda.empty_cache()
+
+    # ------------------- the batched engine and Byzantine decode (phase 6b)
+    rec.update(skinny_checks(torch, dev, gen, sms))
+    batched_rec = batched_phase(torch, np, dev, a, b, walls)
+    del a, b
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ serving at full width
@@ -1284,10 +1551,11 @@ def main(argv=None):
                      f"one block's 4 launches: [17,6] @ [6,{col}] twice; "
                      f"[17,17+2] @ (h [17,{col}], mask [2,{col}]); [4,6] @ 6 "
                      f"rows of [17,{col}] by index"),
-        "modmatmul": ("src/repro_torch/kernels/csrc/modmatmul.cu",
+        "modmatmul": ("src/repro_torch/kernels/csrc/modmatmul_skinny.cu",
                       "src/repro/kernels/modmatmul.py:42",
-                      tags_counts["modmatmul"],
-                      f"tags stage: [17,{col}] @ [{col},1]"),
+                      batched_rec["skinny_launches"],
+                      f"tags: [17,{col}] @ [{col},1] per request; an 8-lane "
+                      f"wave's [8,17,{col}] @ [8,{col},1] in one launch"),
     }
     kernels = []
     for name, (source, replaces, launches, shape) in meta.items():
@@ -1299,7 +1567,8 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": None, "shape": shape, "p": p,
-            "path": "tags stage" if name == "modmatmul" else "main path",
+            "path": ("verified lm_head (b), 8-lane waves"
+                     if name == "modmatmul" else "main path"),
         })
         if name == "modmatmul_batched":
             r31 = rec[(name, P_MERSENNE31)]
@@ -1310,7 +1579,20 @@ def main(argv=None):
                         "bound_ms": bound(*r31["work"])[0],
                         "earlier": r31["earlier"]}})
         elif name == "modmatmul":
-            kernels[-1]["instance"] = "cuda_core"
+            r31 = rec[(name, P_MERSENNE31)]
+            wave = rec[("modmatmul_wave", p)]
+            kernels[-1].update({
+                "instance": "skinny", "earlier": r["earlier"],
+                "device_ms": r["device_ms"],
+                "m31": {"ms": r31["ms"], "device_ms": r31["device_ms"],
+                        "plain_ms": r31["plain_ms"],
+                        "bound_ms": bound(*r31["work"])[0],
+                        "earlier": r31["earlier"]},
+                "wave_8": {"ms": wave["ms"], "device_ms": wave["device_ms"],
+                           "plain_ms": wave["plain_ms"],
+                           "bound_ms": bound(*wave["work"])[0],
+                           "max_abs_err": wave["max_abs_err"]},
+                "calls_ms": batched_rec["walls"]})
         else:
             r31 = rec[(name, P_MERSENNE31)]
             kernels[-1].update({

@@ -14,7 +14,7 @@
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 wrappers' launch counters, so a run can show which kernels it went through;
 :func:`instance_counts` splits them by the instance each wrapper's chooser
-picked (``modmatmul*``: ``tensor_core`` or ``cuda_core``;
+picked (``modmatmul*``: ``tensor_core``, ``skinny`` or ``cuda_core``;
 ``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``).
 """
 from __future__ import annotations

@@ -16,6 +16,12 @@
 // I-points in place of an index_select.  Nothing is built on the host per
 // launch, and the index is read on the device only.
 //
+// Lanes.  One launch also serves B lanes that share V (the batched engine's
+// wave of B requests): lane b reads row k of a source at base + b * bs +
+// row * ld, with row = idx[b * ibs + k] (or k), and writes O + b * N * C.
+// The units of work simply run over the lanes too, so a wave's encode,
+// exchange and decode stay one launch each whatever B is.
+//
 // Bound on an H100: bytes, K*C*8 B read plus N*C*8 B written.  At the main
 // path's shapes (p = 2^26-5, C = 2^20, N = 17, z = 2) one block of the
 // private matmul makes four launches: encode A and B, K = 6 (192.9 MB,
@@ -53,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "field.cuh"
 #include "hopper.cuh"
@@ -71,11 +78,13 @@ constexpr int ROW_CAP = TC_MAX + 2;         // staged row: shift + odd tail
 constexpr int RB_MAX = 64;                  // rows of V per pass (G * RP)
 
 struct Source {
-  const int64_t* base;  // row 0
+  const int64_t* base;  // row 0 of lane 0
   const int64_t* idx;   // device row indices, or null for rows 0, 1, ...
   long long ld;         // elements between rows
   long long nrows;      // rows an index may address
   int rows;             // rows this source gives to K
+  long long bs;         // elements between lanes (0: lanes share the rows)
+  long long ibs;        // index entries between lanes (0: one shared index)
 };
 
 struct __align__(16) Stage {
@@ -87,6 +96,19 @@ static_assert(sizeof(Stage) % 16 == 0, "stages must stay 16-byte aligned");
 static_assert((ROW_CAP * 8) % 16 == 0, "staged rows must stay 16-byte aligned");
 
 constexpr size_t SMEM = STAGES * sizeof(Stage) + 2 * STAGES * sizeof(uint64_t);
+
+// The next unit of a block's walk: `step` units on, carried into the lanes
+// (`u` counts units within lane `bl`) without a division.  A one-lane
+// instance (LANES false) keeps bl at 0 and compiles the lanes away.
+template <bool LANES>
+__device__ __forceinline__ void advance(int& bl, int& u, int step,
+                                        int lane_units) {
+  u += step;
+  if (LANES)
+    for (; u >= lane_units; u -= lane_units) ++bl;
+  else if (u >= lane_units)
+    bl = 1;
+}
 
 // NF folds of every accumulator (NF is a runtime count, at most 4), then one
 // conditional subtract: the twin of field.cuh's mod_p<NF> for an array
@@ -102,12 +124,12 @@ __device__ __forceinline__ void fold_all(uint64_t (&a)[N], const FoldParams& f,
   for (int j = 0; j < N; ++j) a[j] = a[j] >= f.p ? a[j] - f.p : a[j];
 }
 
-template <int R>
+template <int R, bool LANES>
 __global__ void __launch_bounds__(THREADS, 2)
     polyeval_kernel(const int64_t* __restrict__ V, Source s0, Source s1,
                     int64_t* __restrict__ O, int N, int K, long long C, int G,
-                    long long tiles, long long units, FoldParams f, int nf,
-                    int window) {
+                    int tiles, int lane_units, int lanes,
+                    FoldParams f, int nf, int window) {
   constexpr int RP = (R + 3) & ~3;          // a row group's stride in v
   extern __shared__ __align__(128) unsigned char smem[];
   Stage* stage = reinterpret_cast<Stage*>(smem);
@@ -127,12 +149,18 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int rblk = G * R;                     // rows of V per pass
   const int lane = threadIdx.x % 32;
 
+  // the batch lane a unit belongs to: 0, known to the compiler, without
+  // lanes
+  const auto lane_of = [](int bl) { return LANES ? bl : 0; };
+
   if (threadIdx.x < PRODUCER) {
     // ------------------------------------------------------------ producer
     int it = 0;
-    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-      const int n0 = static_cast<int>(u / tiles) * rblk;
-      const long long c0 = (u % tiles) * tc;
+    int bl = 0, u = 0;                          // batch lane, unit in it
+    for (advance<LANES>(bl, u, blockIdx.x, lane_units); bl < lanes;
+         advance<LANES>(bl, u, gridDim.x, lane_units)) {
+      const int n0 = u / tiles * rblk;
+      const long long c0 = static_cast<long long>(u % tiles) * tc;
       const int len = static_cast<int>(min(static_cast<long long>(tc), C - c0));
       for (int k0 = 0; k0 < K; k0 += KS, ++it) {
         const int s = it % STAGES;
@@ -154,12 +182,16 @@ __global__ void __launch_bounds__(THREADS, 2)
         if (lane < nk) {
           const int k = k0 + lane;
           const bool first = k < s0.rows;
+          // fields picked one by one: a reference to either parameter
+          // struct would copy both to the stack
           const int64_t* base = first ? s0.base : s1.base;
           const int64_t* idx = first ? s0.idx : s1.idx;
           const long long kr = first ? k : k - s0.rows;
-          const long long row = idx ? idx[kr] : kr;
+          const long long row =
+              idx ? idx[lane_of(bl) * (first ? s0.ibs : s1.ibs) + kr] : kr;
           if (row < 0 || row >= (first ? s0.nrows : s1.nrows)) __trap();
-          const int64_t* rp = base + row * (first ? s0.ld : s1.ld) + c0;
+          const int64_t* rp = base + lane_of(bl) * (first ? s0.bs : s1.bs) +
+                              row * (first ? s0.ld : s1.ld) + c0;
           const int head = (reinterpret_cast<uintptr_t>(rp) & 15) ? 1 : 0;
           const int body = (len - head) & ~1;
           int64_t* row_s = st.t[lane];
@@ -184,9 +216,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int g = ct / per_group;
   const int j = 2 * (ct % per_group);         // this thread's first column
   int it = 0;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const int n0 = static_cast<int>(u / tiles) * rblk + g * R;
-    const long long c = (u % tiles) * tc + j;
+  int bl = 0, u = 0;                            // batch lane, unit in it
+  for (advance<LANES>(bl, u, blockIdx.x, lane_units); bl < lanes;
+       advance<LANES>(bl, u, gridDim.x, lane_units)) {
+    const int n0 = u / tiles * rblk + g * R;
+    const long long c = static_cast<long long>(u % tiles) * tc + j;
     uint64_t acc[2 * R];
 #pragma unroll
     for (int i = 0; i < 2 * R; ++i) acc[i] = 0;
@@ -236,7 +270,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int r = 0; r < R; ++r) {
       const int n = n0 + r;
       if (n >= N || c >= C) continue;
-      long long* o = reinterpret_cast<long long*>(O) + static_cast<long long>(n) * C + c;
+      long long* o =
+          reinterpret_cast<long long*>(O) + (lane_of(bl) * N + n) * C + c;
       const long long lo = static_cast<long long>(acc[2 * r]);
       const long long hi = static_cast<long long>(acc[2 * r + 1]);
       // streaming stores: F is read by the next stage, not by this one
@@ -250,21 +285,22 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <int R>
+template <int R, bool LANES>
 int launch(const int64_t* V, const Source& s0, const Source& s1, int64_t* O,
-           int N, int K, long long C, const FoldParams& f, int nf, int window,
-           cudaStream_t stream) {
-  static int per_sm = 0;                      // resident blocks per SM
-  if (per_sm == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        polyeval_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, polyeval_kernel<R>,
-                                                      THREADS, SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+           int N, int K, long long C, int B, const FoldParams& f, int nf,
+           int window, cudaStream_t stream) {
+  // The shared-memory attribute belongs to the current device's context, so
+  // it is set, and the occupancy read, on every launch: nothing is cached
+  // per process, and a second card in the same process launches too.
+  cudaError_t e = cudaFuncSetAttribute(
+      polyeval_kernel<R, LANES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;                             // resident blocks per SM
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, polyeval_kernel<R, LANES>, THREADS, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -272,39 +308,50 @@ int launch(const int64_t* V, const Source& s0, const Source& s1, int64_t* O,
   const int G = rb <= 16 ? 1 : (rb <= 32 ? 2 : 4);
   const long long tiles = (C + TC_MAX / G - 1) / (TC_MAX / G);
   const long long passes = (N + G * R - 1) / (G * R);
-  const long long units = tiles * passes;
+  const long long lane_units = tiles * passes;
+  const long long units = lane_units * B;
   const long long grid = min(units, static_cast<long long>(sms) * per_sm);
-  polyeval_kernel<R><<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(
-      V, s0, s1, O, N, K, C, G, tiles, units, f, nf, window);
+  // the kernel walks units in 32-bit counters
+  if (lane_units + grid > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  polyeval_kernel<R, LANES>
+      <<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(
+      V, s0, s1, O, N, K, C, G, static_cast<int>(tiles),
+      static_cast<int>(lane_units), B, f, nf, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  F = V [N, K] against the K rows
-// of T: rows0 rows of source 0, then rows1 of source 1 (rows1 = 0: none).
-// A source is (base, idx, ld, nrows): row k is base + (idx ? idx[k] : k) *
-// ld, with idx a device int64 vector the kernel reads (an entry outside
-// [0, nrows) traps).  Every row has unit column stride and C columns; O is
-// [N, C] contiguous.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for K != rows0 + rows1 or a fold count above 4.
+// Plain C entry point (bound with ctypes).  For each of B lanes, F = V [N, K]
+// against the K rows of T: rows0 rows of source 0, then rows1 of source 1
+// (rows1 = 0: none).  A source is (base, idx, ld, nrows, rows, bs, ibs): row
+// k of lane b is base + b * bs + (idx ? idx[b * ibs + k] : k) * ld, with idx
+// a device int64 array the kernel reads (an entry outside [0, nrows) traps).
+// Every row has unit column stride and C columns; O is [B, N, C] contiguous.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// K != rows0 + rows1 or a fold count above 4.
 extern "C" int polyeval_launch(const void* v, const void* base0,
                                const void* idx0, long long ld0,
-                               long long nrows0, int rows0, const void* base1,
+                               long long nrows0, int rows0, long long bs0,
+                               long long ibs0, const void* base1,
                                const void* idx1, long long ld1,
-                               long long nrows1, int rows1, void* o, int N,
-                               int K, long long C, long long p, int fold_bits,
+                               long long nrows1, int rows1, long long bs1,
+                               long long ibs1, void* o, int N, int K,
+                               long long C, int B, long long p, int fold_bits,
                                long long fold_c, int n_folds, int window,
                                void* stream) {
-  if (K != rows0 + rows1 || n_folds < 1 || n_folds > 4 || window < 1)
+  if (K != rows0 + rows1 || n_folds < 1 || n_folds > 4 || window < 1 || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0 || C == 0) return 0;
+  if (N == 0 || C == 0 || B == 0) return 0;
   const FoldParams f{static_cast<uint64_t>(p), static_cast<uint32_t>(fold_bits),
                      static_cast<uint64_t>(fold_c)};
   const Source s0{static_cast<const int64_t*>(base0),
-                  static_cast<const int64_t*>(idx0), ld0, nrows0, rows0};
+                  static_cast<const int64_t*>(idx0), ld0, nrows0, rows0, bs0,
+                  ibs0};
   const Source s1{static_cast<const int64_t*>(base1),
-                  static_cast<const int64_t*>(idx1), ld1, nrows1, rows1};
+                  static_cast<const int64_t*>(idx1), ld1, nrows1, rows1, bs1,
+                  ibs1};
   const auto* Vp = static_cast<const int64_t*>(v);
   auto* Op = static_cast<int64_t*>(o);
   auto st = static_cast<cudaStream_t>(stream);
@@ -313,10 +360,19 @@ extern "C" int polyeval_launch(const void* v, const void* base0,
   const int rb = N < RB_MAX ? N : RB_MAX;
   const int G = rb <= 16 ? 1 : (rb <= 32 ? 2 : 4);
   const int need = (rb + G - 1) / G;
-  if (need <= 2) return launch<2>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
-  if (need <= 4) return launch<4>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
-  if (need <= 6) return launch<6>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
-  if (need <= 9) return launch<9>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
-  if (need <= 12) return launch<12>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
-  return launch<16>(Vp, s0, s1, Op, N, K, C, f, n_folds, window, st);
+  // one lane (the unbatched stages) takes the instance without lanes
+  const auto run = [&](auto r) {
+    constexpr int RR = decltype(r)::value;
+    return B == 1
+               ? launch<RR, false>(Vp, s0, s1, Op, N, K, C, B, f, n_folds,
+                                   window, st)
+               : launch<RR, true>(Vp, s0, s1, Op, N, K, C, B, f, n_folds,
+                                  window, st);
+  };
+  if (need <= 2) return run(std::integral_constant<int, 2>{});
+  if (need <= 4) return run(std::integral_constant<int, 4>{});
+  if (need <= 6) return run(std::integral_constant<int, 6>{});
+  if (need <= 9) return run(std::integral_constant<int, 9>{});
+  if (need <= 12) return run(std::integral_constant<int, 12>{});
+  return run(std::integral_constant<int, 16>{});
 }

@@ -347,14 +347,12 @@ int launch_vc(const void* r, const void* k, const void* v, const void* w,
               int Tn, int H, const Strides& rs, const Strides& ks,
               const Strides& vs, const Strides& ws, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, VC>();
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wkv_kernel<T, VC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
-  }
+  // set on every launch: the attribute belongs to the current device's
+  // context, so a flag kept per process would refuse a second card
+  const cudaError_t e = cudaFuncSetAttribute(
+      wkv_kernel<T, VC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap mr{}, mk{}, mw{}, mv{};
   const int tma = operand_map<T>(&mr, r, B, Tn, H, rs, K, K) &&
                   operand_map<T>(&mk, k, B, Tn, H, ks, K, K) &&

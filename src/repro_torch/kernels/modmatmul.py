@@ -2,18 +2,24 @@
 
 ``O = (A @ B) mod p`` for field elements (int64 storage, values < p).
 
-Port of ``repro/kernels/modmatmul.py``.  Two CUDA kernels replace the
+Port of ``repro/kernels/modmatmul.py``.  Three CUDA kernels replace the
 Pallas kernels, and :func:`choose_instance` picks one from the shapes alone
 before any launch:
 
 * ``tensor_core`` (``csrc/modmatmul_tc.cu``): the product over 8-bit limbs
   on the int8 tensor cores (wgmma fed by TMA), for every product whose
   output fills its 64x64 tiles (the main path's ``[17,1024,1024]²``);
+* ``skinny`` (``csrc/modmatmul_skinny.cu``): a streaming reduction for an
+  output of at most :data:`SKINNY_N` columns (the MAC tags'
+  ``[17, 2^20] @ [2^20, 1]``, and a wave's ``[B, 17, 2^20] @ [B, 2^20,
+  1]``): each block sums :func:`skinny_rows` rows of A against a slice of
+  K with 16-byte loads, every byte read once, and a second pass adds the
+  :func:`skinny_blocks` blocks' partials;
 * ``cuda_core`` (``csrc/modmatmul.cu``): one block per (worker, 64×64
   output tile) loops over K with shared-memory tiles and a register
   micro-tile, folding with ``mod_p`` every ``acc_window(p)`` products, and
   splits K across blocks when the output tiles cannot fill the card
-  (:func:`k_splits`): the ``tags`` stage's ``[17, 2^20] @ [2^20, 1]``.
+  (:func:`k_splits`): every other shape.
 
 Each source states its bound and design.  Two wrappers:
 
@@ -21,8 +27,8 @@ Each source states its bound and design.  Two wrappers:
   launch (``worker_compute``'s product);
 * :func:`modmatmul` — one product, the ``W = 1`` launch.
 
-Each wrapper checks its operands, allocates the output (and the tensor-core
-instance's limb planes) with ``torch.empty``, launches on the current
+Each wrapper checks its operands, allocates the output (and the instances'
+scratch: limb planes, partial sums) with ``torch.empty``, launches on the current
 stream and counts the launch in its ``launches`` attribute and in
 ``instances[name]``.  A CPU tensor takes the plain version
 (:func:`modmatmul_plain`, the :mod:`repro_torch.kernels.barrett` ops); a
@@ -49,7 +55,7 @@ def modmatmul_plain(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor
     return matmul_plain(a, b, p=p, window=acc_window(p))
 
 
-INSTANCES = ("tensor_core", "cuda_core")
+INSTANCES = ("tensor_core", "skinny", "cuda_core")
 
 TC_TILE = 64       # modmatmul_tc.cu's output tile side (BM = BN)
 LIMBS = 4          # 8-bit limbs per element: any p < 2^32
@@ -60,6 +66,36 @@ TILE = 64          # output tile side of one block (BM = BN in modmatmul.cu)
 TILE_K = 32        # K depth staged per shared-memory pass (BK)
 MIN_SPLIT_K = 512  # fewest K rows worth a block of their own
 MAX_GRID_Z = 65535
+SKINNY_N = 4       # widest output the skinny instance takes
+# rows of A one skinny block sums, by output width (its kernel instances)
+SKINNY_ROWS = {1: (8, 20, 32), 2: (8, 16), 4: (8,)}
+SKINNY_THREADS = 256
+SKINNY_PER_SM = 6      # blocks per SM over the whole grid: three waves of two
+SKINNY_MIN_STEPS = 8   # K steps (of 2 elements) each thread takes at least
+MAX_GRID_X = 2**31 - 1
+
+
+def skinny_rows(m: int, n: int) -> int:
+    """R, the rows of A one skinny block sums: the smallest instance that
+    covers all M rows in one pass, else the largest (M / R passes)."""
+    opts = SKINNY_ROWS[1 if n == 1 else (2 if n == 2 else 4)]
+    return next((r for r in opts if m <= r), opts[-1])
+
+
+def skinny_blocks(w: int, m: int, k: int, n: int, sms: int) -> int:
+    """G, the blocks that share one lane's K.
+
+    About :data:`SKINNY_PER_SM` blocks per SM over the whole grid (W lanes
+    x passes), three waves of the two resident ones, so the last wave's
+    tail is short; but each thread takes at least
+    :data:`SKINNY_MIN_STEPS` steps of K, so a block's start and its
+    reduction stay a small share of its life.  On an H100 the tags'
+    ``[17, 2^20] @ [2^20, 1]`` gets 256 blocks and an 8-lane wave 99 per
+    lane (PERF.md)."""
+    passes = -(-m // skinny_rows(m, n))
+    want = -(-SKINNY_PER_SM * sms // max(w * passes, 1))
+    most = -(-k // (SKINNY_THREADS * 2 * SKINNY_MIN_STEPS))
+    return max(1, min(want, most, MAX_GRID_X))
 
 
 def k_splits(w: int, m: int, k: int, n: int, sms: int):
@@ -84,13 +120,17 @@ def choose_instance(w: int, m: int, k: int, n: int) -> str:
     """The kernel that serves a ``[W,M,K] @ [W,K,N]`` product on the card.
 
     ``"tensor_core"`` when its 64×64 output tile is full in both M and N
-    (and the grid fits), ``"cuda_core"`` otherwise: a skinny product such
-    as the ``tags`` stage's N = 1, where split K fills the card, or a tiny
-    ragged one.  A pure function of the shapes.
+    (and the grid fits); ``"skinny"`` for an output of at most
+    :data:`SKINNY_N` columns (the ``tags`` stage's N = 1); ``"cuda_core"``
+    for the rest, such as a tiny ragged product.  A pure function of the
+    shapes.
     """
     if (m >= TC_TILE and n >= TC_TILE and k >= 1 and w <= MAX_GRID_Z
             and -(-m // TC_TILE) <= MAX_GRID_Z):
         return "tensor_core"
+    if (1 <= n <= SKINNY_N and k >= 1 and w <= MAX_GRID_Z
+            and -(-m // skinny_rows(m, n)) <= MAX_GRID_Z):
+        return "skinny"
     return "cuda_core"
 
 
@@ -157,6 +197,18 @@ def _lib_tc():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_skinny():
+    fn = _build.load("modmatmul_skinny").modmatmul_skinny_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(a: torch.Tensor, b: torch.Tensor, ndim: int, what: str) -> None:
     for x in (a, b):
         if not isinstance(x, torch.Tensor) or x.dtype != torch.int64:
@@ -215,6 +267,28 @@ def _launch_tensor_core(a: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
+def _launch_skinny(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
+    w, m, k = a.shape
+    n = b.shape[2]
+    if not 1 <= n <= SKINNY_N:
+        raise ShapeContractError(
+            f"the skinny instance takes outputs of 1 to {SKINNY_N} columns, "
+            f"got {n}", shapes=(a.shape, b.shape))
+    rows = skinny_rows(m, n)
+    g = skinny_blocks(w, m, k, n, _sm_count(a.device.index))
+    out = torch.empty((w, m, n), dtype=torch.int64, device=a.device)
+    # per-block partials, each < p; summed mod p by the second pass
+    part = (torch.empty((g, w, m, n), dtype=torch.int64, device=a.device)
+            if g > 1 else None)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib_skinny()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                            None if part is None else part.data_ptr(),
+                            w, m, k, n, rows, g, *_build.fold_args(p), stream)
+    _build.check(err, "modmatmul (skinny)")
+    return out
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int,
             instance: str) -> torch.Tensor:
     """Launch one instance on ``[W,M,K] @ [W,K,N]`` CUDA operands, uncounted:
@@ -222,6 +296,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int,
     check an instance the chooser would not pick."""
     if instance == "tensor_core":
         return _launch_tensor_core(a, b, p=p)
+    if instance == "skinny":
+        return _launch_skinny(a, b, p=p)
     if instance == "cuda_core":
         return _launch_cuda_core(a, b, p=p)
     raise ValueError(f"unknown modmatmul instance {instance!r}; "

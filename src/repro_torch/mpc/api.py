@@ -27,9 +27,12 @@ derives a per-block seed from (base key, block index) so every block draws
 distinct phase-1/2 randomness.  ``Y`` does not depend on the draws: the
 masks cancel.
 
-Not ported yet, and refused with ``NotImplementedError``: worker pools and
-placements, ``MPCSpec.tune`` and cost-model block search (ROADMAP queue 1,
-item 6), adversary budgets (item 7), and every backend but ``local``.
+Heterogeneous worker pools and placements (:mod:`.workers`),
+``MPCSpec.tune`` and cost-model block search (:mod:`.autotune`), and
+adversary budgets with MAC-verified decode (:mod:`.byzantine`) work as in
+the reference, on the ``local`` and ``batched`` backends.  The ``sharded``
+and ``remote`` backends are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -42,21 +45,17 @@ import torch
 from .errors import MaskShapeError, QuorumError
 from .field import DEFAULT_FIELD, Field, fold_in, resolve_device
 from .planner import PlanKey, ProtocolPlan, _resolve_code, get_plan
-from .tiling import DEFAULT_TILE_BUDGET, TileMap, assemble, choose_block, tile_blocks
+from .tiling import (
+    DEFAULT_TILE_BUDGET,
+    TileMap,
+    assemble,
+    choose_block,
+    choose_block_cost,
+    tile_blocks,
+)
+from .workers import WorkerPool
 
 SCHEMES = ("age", "entangled", "polydot")
-
-
-def _not_ported(pool, placement, adversaries) -> None:
-    """Refuse the options whose slices the port does not have yet."""
-    if pool is not None or placement is not None:
-        raise NotImplementedError(
-            "worker pools and placements come with the autotuner and worker "
-            "pools slice (ROADMAP queue 1, item 6)")
-    if adversaries:
-        raise NotImplementedError(
-            "adversary budgets come with the Byzantine decode slice "
-            "(ROADMAP queue 1, item 7)")
 
 
 # ===================================================================== spec
@@ -73,8 +72,17 @@ class MPCSpec:
     field  : prime field + fixed-point encoding config (``Field.frac_bits``)
     m      : optional default protocol block side (``s|m`` and ``t|m``);
              unset, the session's shape adapter picks one per workload
-    pool, placement, adversaries : the reference's heterogeneous-pool and
-             Byzantine fields; only their defaults are ported so far
+    pool   : optional heterogeneous device roster (:class:`WorkerPool`).
+             With a pool, worker ids given to ``fail`` are roster *device*
+             ids, translated to protocol slots through the placement;
+             survivor masks stay slot-indexed (``[N]`` bools).
+    placement : optional roster device id serving each protocol slot
+             ``0..N-1`` (distinct, in range); ``None`` with a pool is the
+             identity prefix
+    adversaries : Byzantine budget ``a`` >= 0: how many workers may return
+             wrong shares per round.  ``a > 0`` raises the serving quorum
+             to ``t²+z + 2a`` and routes every decode through MAC
+             verification; the code's worker count must cover it.
     """
 
     s: int
@@ -84,7 +92,7 @@ class MPCSpec:
     scheme: str = "age"
     field: Field = DEFAULT_FIELD
     m: Optional[int] = None
-    pool: Optional[object] = None
+    pool: Optional[WorkerPool] = None
     placement: Optional[Tuple[int, ...]] = None
     adversaries: int = 0
 
@@ -104,10 +112,26 @@ class MPCSpec:
                                    or self.m % self.t):
             raise ValueError(
                 f"need s|m and t|m: s={self.s} t={self.t} m={self.m}")
+        if self.pool is not None and not isinstance(self.pool, WorkerPool):
+            raise TypeError(f"pool must be a WorkerPool, got {self.pool!r}")
+        if self.placement is not None:
+            if self.pool is None:
+                raise ValueError("placement requires a pool")
+            pl = tuple(int(d) for d in self.placement)
+            if len(set(pl)) != len(pl) or any(
+                    not 0 <= d < len(self.pool) for d in pl):
+                raise ValueError(
+                    f"placement must be distinct device ids within the "
+                    f"{len(self.pool)}-device pool, got {self.placement!r}")
+            object.__setattr__(self, "placement", pl)
         a = self.adversaries
         if isinstance(a, bool) or not isinstance(a, (int, np.integer)) or a < 0:
             raise ValueError(f"adversaries must be an int >= 0, got {a!r}")
-        _not_ported(self.pool, self.placement, a)
+        if a > 0 and self.n_workers < self.verified_threshold:
+            raise ValueError(
+                f"adversary budget a={a} needs N >= t²+z+2a = "
+                f"{self.verified_threshold} workers but the "
+                f"{self.scheme} code provides only N={self.n_workers}")
 
     # ------------------------------------------------------------ identity
     def replace(self, **kw) -> "MPCSpec":
@@ -115,17 +139,61 @@ class MPCSpec:
         return dataclasses.replace(self, **kw)
 
     def plan_key(self, m: Optional[int] = None) -> PlanKey:
-        """The process-wide planner-cache key for this spec (+ block side)."""
-        return (self.scheme, self.s, self.t, self.z, self.lam,
+        """The process-wide planner-cache key for this spec (+ block side).
+
+        Pool-free specs keep the 7-tuple; a pool appends the effective
+        placement (it never changes the plan's tables: the qualified key
+        aliases the shared plan)."""
+        base = (self.scheme, self.s, self.t, self.z, self.lam,
                 self.field.p, self._block(m))
+        if self.pool is None:
+            return base
+        return base + (self.effective_placement,)
+
+    @property
+    def pool_key(self) -> Optional[Tuple]:
+        """Hashable roster signature, or ``None`` without a pool."""
+        return None if self.pool is None else self.pool.key
 
     def group_key(self, m: Optional[int] = None) -> Tuple:
-        """Serving-group identity: the plan key (no pools or budgets yet)."""
-        return self.plan_key(m)
+        """Serving-group identity: ``plan_key``, extended with the pool
+        signature for pool specs and with ``("byz", a)`` for a nonzero
+        adversary budget (verified and unverified requests never share a
+        serving group)."""
+        pk = self.plan_key(m)
+        if self.pool is not None:
+            pk = pk + (self.pool.key,)
+        if self.adversaries:
+            pk = pk + (("byz", self.adversaries),)
+        return pk
+
+    @property
+    def effective_placement(self) -> Optional[Tuple[int, ...]]:
+        """The placement in force: ``None`` without a pool, the explicit
+        placement when set (checked against N), else the identity prefix."""
+        if self.pool is None:
+            return None
+        n = self.n_workers
+        if self.placement is not None:
+            if len(self.placement) != n:
+                raise ValueError(
+                    f"placement has {len(self.placement)} devices but the "
+                    f"code needs N={n} workers")
+            return self.placement
+        if len(self.pool) < n:
+            raise ValueError(
+                f"pool has {len(self.pool)} devices < N={n}")
+        return tuple(range(n))
 
     def slots_for(self, devices) -> Tuple[int, ...]:
-        """Worker ids are protocol slots (no pool translation yet)."""
-        return tuple(sorted(int(d) for d in devices))
+        """Translate worker ids to protocol slots: without a pool ids are
+        slots; with one they are roster device ids, and devices outside
+        the placement have no slot and are dropped."""
+        pl = self.effective_placement
+        if pl is None:
+            return tuple(sorted(int(d) for d in devices))
+        inv = {d: i for i, d in enumerate(pl)}
+        return tuple(sorted(inv[int(d)] for d in devices if int(d) in inv))
 
     def _block(self, m: Optional[int]) -> int:
         m = self.m if m is None else m
@@ -149,6 +217,12 @@ class MPCSpec:
         return self.t * self.t + self.z
 
     @property
+    def verified_threshold(self) -> int:
+        """Alive workers a verified decode needs: ``t²+z + 2a`` (the plain
+        recovery threshold when ``a = 0``)."""
+        return self.recovery_threshold + 2 * self.adversaries
+
+    @property
     def frac_bits(self) -> int:
         return self.field.frac_bits
 
@@ -156,14 +230,18 @@ class MPCSpec:
     @classmethod
     def tune(cls, n_workers: Optional[int] = None, z: int = None,
              shape=None, **kw) -> "MPCSpec":
-        raise NotImplementedError(
-            "MPCSpec.tune comes with the autotuner and worker pools slice "
-            "(ROADMAP queue 1, item 6)")
+        """The autotuned spec for a worker budget and a workload ``shape =
+        (r, k, c)``: :func:`repro_torch.mpc.autotune.tune`'s winner, with
+        its block side (and, with ``pool=``, its placement) baked in."""
+        from .autotune import tune as _tune
+
+        return _tune(n_workers, z, shape, **kw).spec
 
     def plan(self, m: Optional[int] = None) -> ProtocolPlan:
         """The cached data-independent tables for this spec at block ``m``."""
         return get_plan(self.scheme, self.s, self.t, self.z, self.lam,
-                        self.field, self._block(m))
+                        self.field, self._block(m),
+                        placement=self.effective_placement)
 
     def protocol(self, m: Optional[int] = None):
         """An :class:`~repro_torch.mpc.protocol.AGECMPCProtocol` for
@@ -173,16 +251,21 @@ class MPCSpec:
         return AGECMPCProtocol.from_spec(self, m=m)
 
     # ------------------------------------------------- survivor validation
-    def validate_survivors(self, survivors) -> np.ndarray:
+    def validate_survivors(self, survivors, *,
+                           corrected: bool = False) -> np.ndarray:
         """First ``t²+z`` alive worker indices for a survivor mask.
 
         Raises :class:`~repro_torch.mpc.errors.MaskShapeError` (a
         ``ValueError``) on a mis-shaped mask and
         :class:`~repro_torch.mpc.errors.QuorumError` (a ``RuntimeError``)
-        when fewer than the quorum survive.  The returned prefix is the
+        when fewer survive than the quorum: ``t²+z``, or the verified
+        ``t²+z + 2a`` when ``adversaries > 0``.  ``corrected=True`` marks a
+        mask already through MAC verification (liars excluded): only the
+        plain ``t²+z`` applies.  The returned prefix is always the ``t²+z``
         decode quorum; its frozen tuple keys the plan's survivor LRU.
         """
-        need = self.recovery_threshold
+        t2z = self.recovery_threshold
+        need = t2z if corrected else self.verified_threshold
         n = self.n_workers
         alive = (np.ones(n, bool) if survivors is None
                  # analysis: allow(host-sync): survivor masks are host data
@@ -193,11 +276,14 @@ class MPCSpec:
                 spec=self, quorum=need)
         idx = np.nonzero(alive)[0]
         if len(idx) < need:
+            detail = ("" if need == t2z else
+                      f" (verified quorum t²+z+2a for adversary budget "
+                      f"a={self.adversaries})")
             raise QuorumError(
-                f"only {len(idx)} workers alive < threshold {need}",
+                f"only {len(idx)} workers alive < threshold {need}{detail}",
                 spec=self, quorum=need, alive=len(idx),
                 slots=np.nonzero(~alive)[0])
-        return idx[:need]
+        return idx[:t2z]
 
 
 # ================================================================== blocks
@@ -221,11 +307,17 @@ class BlockFailure:
 
 @dataclasses.dataclass
 class _Request:
-    """One logical session matmul: its block ops + how to reassemble."""
+    """One logical session matmul: its block ops + how to reassemble.
+
+    ``raw`` keeps the un-tiled call (operands, key, flags, and the logical
+    ``shape``/``batch``) so a queued request can be tiled again when an
+    attrition drain adopts a spec with another block side; ``None`` for
+    zero-size requests."""
 
     rid: int
     ops: List[BlockOp]
     build: Callable[[List[torch.Tensor]], torch.Tensor]
+    raw: Optional[Dict[str, Any]] = None
 
 
 # ================================================================= session
@@ -235,12 +327,13 @@ class MPCSession:
 
     * :meth:`matmul` — rectangular/batched float (or field) matmul;
     * :meth:`submit` / :meth:`flush` — queue many matmuls, serve together;
-    * :meth:`fail` — report worker attrition (folded into later decodes);
+    * :meth:`fail` — report worker attrition (folded into later decodes;
+      the batched backend escalates through its elastic pools);
     * :meth:`validate_survivors` — the spec's public mask validation.
     """
 
     def __init__(self, spec: MPCSpec, backend, *, device, key=None,
-                 tile_budget: int = DEFAULT_TILE_BUDGET):
+                 tile_budget: int = DEFAULT_TILE_BUDGET, cost=None):
         if not isinstance(spec, MPCSpec):
             raise TypeError(f"spec must be an MPCSpec, got {spec!r}")
         if (isinstance(tile_budget, bool)
@@ -257,8 +350,14 @@ class MPCSession:
         self._pending: List[_Request] = []
         self._next_rid = 0
         self._tile_budget = int(tile_budget)
+        # optional CostModel: block sides come from the cost-model search
+        # instead of the fixed-(s, t) doubling rule
+        self._cost = cost
         self.failures: Dict[int, str] = {}
-        self.stats = {"matmuls": 0, "blocks": 0, "flushes": 0}
+        self.stats = {"matmuls": 0, "blocks": 0, "flushes": 0,
+                      "retiles": 0, "masks_dropped": 0,
+                      "corrections": 0, "evicted_devices": 0,
+                      "waves": 0, "padded_lanes": 0, "deferred_groups": 0}
 
     # ------------------------------------------------------------- helpers
     def validate_survivors(self, survivors) -> np.ndarray:
@@ -266,12 +365,31 @@ class MPCSession:
         return self.spec.validate_survivors(survivors)
 
     def fail(self, workers) -> None:
-        """Mark workers (protocol slots) dead for every later matmul/flush;
-        the dead set folds into each decode's survivor mask."""
+        """Mark workers dead for every later matmul/flush.
+
+        Ids are protocol slots without a pool and roster device ids with
+        one.  The local backend folds the dead set into each decode's
+        survivor mask; the batched backend reports it to its elastic pools,
+        so spares and retune/replan escalation engage."""
         self._dead.update(int(w) for w in np.atleast_1d(
             # analysis: allow(host-sync): worker ids are host data
             np.asarray(workers, np.int64)).tolist())
         self.backend.fail(frozenset(self._dead))
+
+    def _absorb_byzantine(self) -> None:
+        """After every dispatch round: mirror the backend's wave and
+        verified-decode counters into :attr:`stats`, and route newly caught
+        liars through :meth:`fail` (a liar is attrition; ids are roster
+        device ids for pool specs, slots otherwise)."""
+        s = self.backend.scheduler_stats()
+        for k in ("waves", "padded_lanes", "deferred_groups"):
+            self.stats[k] = int(s.get(k, 0))
+        c = self.backend.byzantine_stats()
+        self.stats["corrections"] = int(c.get("corrections", 0))
+        self.stats["evicted_devices"] = int(c.get("evicted_devices", 0))
+        liars = self.backend.take_new_liars()
+        if liars:
+            self.fail(sorted(liars))
 
     def _serve_ops(self, ops: List[BlockOp]) -> List[BlockOp]:
         """Fold session attrition into each block's decode mask."""
@@ -309,6 +427,7 @@ class MPCSession:
         if req.ops:
             outs = self.backend.run_blocks(self._serve_ops(req.ops))
             self.stats["flushes"] += 1   # one backend dispatch round
+            self._absorb_byzantine()
         for out in outs:
             if isinstance(out, BlockFailure):
                 raise QuorumError(out.reason)
@@ -330,10 +449,15 @@ class MPCSession:
     def flush(self) -> Dict[int, torch.Tensor]:
         """Serve every queued request; returns ``{rid: result}``.
 
-        All queued blocks go to the backend as ONE op list.  Failures are
-        isolated per request in :attr:`failures` (``rid → reason``,
-        replaced each flush).
+        All queued blocks go to the backend as ONE op list (one engine
+        flush on the batched backend).  Failures are isolated per request
+        in :attr:`failures` (``rid → reason``, replaced each flush).
+
+        When attrition has pushed the backing pool below N and a free
+        re-tune prefers another block side, queued requests are tiled
+        again at the new optimum first (``stats["retiles"]``).
         """
+        self._maybe_retile()
         queue, self._pending = self._pending, []
         self.failures = {}
         ops: List[BlockOp] = []
@@ -343,6 +467,7 @@ class MPCSession:
         if ops:
             outs = self.backend.run_blocks(self._serve_ops(ops))
             self.stats["flushes"] += 1   # one backend dispatch round
+            self._absorb_byzantine()
 
         results: Dict[int, torch.Tensor] = {}
         pos = 0
@@ -356,11 +481,60 @@ class MPCSession:
             results[req.rid] = req.build(chunk)
         return results
 
+    # ------------------------------------------------------- replan drain
+    def _maybe_retile(self) -> None:
+        """Adopt a drain re-tune before tiling reaches the backend.
+
+        Engages when the session has reported attrition, the backend can
+        answer a free re-tune (``drain_spec``: the batched backend, through
+        its engine's pools) and that re-tune's block side differs from the
+        in-flight spec's.  Queued requests holding their raw operands are
+        then rebuilt under the new spec (same rids); their survivor masks,
+        sized for the old worker set, are dropped (``stats
+        ["masks_dropped"]``).  A pool spec keeps its dead set (the new spec
+        carries the same roster); an int-N spec's dead slots name workers
+        of the old protocol, so the set and the backend's view reset.
+        """
+        if not self._pending or not self._dead:
+            return
+        raws = [r.raw for r in self._pending
+                if r.raw is not None and r.raw["m"] is None]
+        if not raws:
+            return
+        # the largest queued workload drives the block side
+        pick = max(raws, key=lambda raw: raw["batch"] * int(
+            np.prod(raw["shape"], dtype=np.int64)))
+        new = self.backend.drain_spec(
+            self.spec, pick["shape"], batch=pick["batch"],
+            cost=self._cost, tile_budget=self._tile_budget)
+        if new is None:
+            return
+        old_spec, self.spec = self.spec, new
+        self.stats["retiles"] += 1
+        if old_spec.pool is None:
+            self._dead.clear()
+            self.backend.fail(frozenset())
+        queue, self._pending = self._pending, []
+        for req in queue:
+            raw = req.raw
+            if raw is None or raw["m"] is not None:
+                self._pending.append(req)  # pinned block side: keep
+                continue
+            surv = raw["survivors"]
+            if surv is not None:
+                surv = None
+                self.stats["masks_dropped"] += 1
+            self.stats["blocks"] -= len(req.ops)
+            self._pending.append(self._build_request(
+                raw["a"], raw["b"], key=raw["key"], survivors=surv,
+                encoded=raw["encoded"], m=None, rid=req.rid))
+
     # -------------------------------------------------- request construction
     def _build_request(self, a, b, *, key, survivors, encoded,
-                       m) -> _Request:
+                       m, rid: Optional[int] = None) -> _Request:
         f = self.spec.field
         dev = self.device
+        raw_a, raw_b = a, b      # the caller's operands, for a re-tile
         a = a.to(dev) if isinstance(a, torch.Tensor) else torch.tensor(a, device=dev)
         b = b.to(dev) if isinstance(b, torch.Tensor) else torch.tensor(b, device=dev)
         a_vec, b_vec = a.ndim == 1, b.ndim == 1
@@ -411,7 +585,7 @@ class MPCSession:
                 zeros = zeros[..., 0]
             if a_vec:
                 zeros = zeros[0] if b_folded else zeros[..., 0, :]
-            return self._finish_request([], lambda outs: zeros)
+            return self._finish_request([], lambda outs: zeros, rid=rid)
 
         if m is not None:
             # route the override through the spec so the s|m / t|m rule
@@ -419,6 +593,18 @@ class MPCSession:
             block = self.spec.replace(m=int(m)).m
         elif self.spec.m:
             block = self.spec.m
+        elif self._cost is not None:
+            # a backend whose per-block launch serializes scales the
+            # dispatch term of the block search
+            cost = self._cost
+            scale = self.backend.dispatch_scale(self.spec)
+            if scale != 1.0:
+                cost = cost.with_dispatch_scale(scale)
+            block = choose_block_cost(
+                self.spec.s, self.spec.t, self.spec.z, self.spec.n_workers,
+                r, kdim, c, cost=cost, batch=len(pieces),
+                budget=self._tile_budget, pool=self.spec.pool,
+                placement=self.spec.effective_placement)
         else:
             block = choose_block(self.spec.s, self.spec.t, r, kdim, c,
                                  budget=self._tile_budget)
@@ -472,15 +658,20 @@ class MPCSession:
                 out = out[0] if b_folded else out[..., 0, :]
             return out
 
-        return self._finish_request(ops, build)
+        raw = {"a": raw_a, "b": raw_b, "key": key, "survivors": survivors,
+               "encoded": encoded, "m": m, "shape": (r, kdim, c),
+               "batch": n_pieces}
+        return self._finish_request(ops, build, raw=raw, rid=rid)
 
-    def _finish_request(self, ops: List[BlockOp],
-                        build: Callable) -> _Request:
-        rid = self._next_rid
-        self._next_rid += 1
-        self.stats["matmuls"] += 1
+    def _finish_request(self, ops: List[BlockOp], build: Callable, *,
+                        raw: Optional[Dict[str, Any]] = None,
+                        rid: Optional[int] = None) -> _Request:
+        if rid is None:  # a drain re-tile keeps the caller-visible rid
+            rid = self._next_rid
+            self._next_rid += 1
+            self.stats["matmuls"] += 1
         self.stats["blocks"] += len(ops)
-        return _Request(rid=rid, ops=ops, build=build)
+        return _Request(rid=rid, ops=ops, build=build, raw=raw)
 
 
 # ================================================================= connect
@@ -490,20 +681,36 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
 
     ``device``: where every block runs; default the card (raises when
     there is none).  ``backend``: ``"local"`` (``mode="fused"|"kernel"|
-    "reference"``) or a constructed backend; the reference's other
-    backends raise ``NotImplementedError`` naming their ROADMAP item.
-    Session options: ``key`` (int seed or ``torch.Generator``, the base of
-    every per-call key) and ``tile_budget`` (the shape adapter's dispatch
-    cap).  ``cost`` (cost-model block search) is not ported yet.
+    "reference"``, optional ``injector``), ``"batched"`` (the
+    :class:`~repro_torch.mpc.engine.MPCEngine`: optional ``spares``,
+    ``max_batch``, ``wave_scalars``, ``inflight``, ``injector``,
+    ``recorder``) or a constructed backend; ``"sharded"`` and ``"remote"``
+    raise ``NotImplementedError`` naming their ROADMAP items.  Session
+    options: ``key`` (int seed or ``torch.Generator``, the base of every
+    per-call key), ``tile_budget`` (the shape adapter's dispatch cap) and
+    ``cost`` (a :class:`~repro_torch.mpc.autotune.CostModel`: block sides
+    come from the cost-model search, and the batched engine re-tunes under
+    the same weights on attrition).  A spec with ``adversaries > 0``
+    routes every decode through MAC verification; ``injector`` (a
+    :class:`~repro_torch.mpc.byzantine.FaultInjector`) corrupts shares on a
+    seeded schedule to prove it.
     """
     from .backends import resolve_backend
 
     dev = resolve_device(device)
     key = opts.pop("key", None)
     tile_budget = opts.pop("tile_budget", DEFAULT_TILE_BUDGET)
-    if opts.pop("cost", None) is not None:
-        raise NotImplementedError(
-            "cost-model block search comes with the autotuner and worker "
-            "pools slice (ROADMAP queue 1, item 6)")
+    cost = opts.pop("cost", None)
+    if backend == "batched":
+        opts.setdefault("device", dev)       # the engine runs where we do
+        if cost is not None:
+            # the engine re-tunes under the objective it serves with
+            opts.setdefault("cost", cost)
     be = resolve_backend(backend, **opts)
-    return MPCSession(spec, be, device=dev, key=key, tile_budget=tile_budget)
+    engine = getattr(be, "engine", None)
+    if cost is not None and engine is not None and engine.cost is None:
+        # a constructed batched backend: align its re-tune objective with
+        # the session's, unless its engine was built with its own
+        engine.cost = cost
+    return MPCSession(spec, be, device=dev, key=key, tile_budget=tile_budget,
+                      cost=cost)

@@ -3,24 +3,31 @@
 Port of ``repro/mpc/backends.py``.  A backend runs a list of coded block
 products (``BlockOp``: protocol + field-domain ``m×m`` operands + key +
 survivor mask) and returns one field-domain result, or a ``BlockFailure``,
-per op, in order.  A block whose survivor mask falls below the decode
-quorum becomes a ``BlockFailure`` in its slot and never takes down the
-other blocks.
+per op, in order.  A block the backend cannot serve (mask below the
+quorum, infeasible pool, adversary budget exhausted) becomes a
+``BlockFailure`` in its slot and never takes down the other blocks.
 
-Only :class:`LocalBackend` is ported so far: every block through
-``AGECMPCProtocol.run`` on the session's device.  The reference's
-``sharded``, ``batched`` and ``remote`` backends raise
+* :class:`LocalBackend`: every block through ``AGECMPCProtocol.run`` on
+  the session's device; with an adversary budget, through
+  ``run_verified`` (and an optional :class:`FaultInjector`).
+* :class:`BatchedBackend`: the whole op list submitted to an
+  :class:`~repro_torch.mpc.engine.MPCEngine` and served in ONE flush;
+  session attrition routes into the engine's elastic pools.
+
+The reference's ``sharded`` and ``remote`` backends raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, List, Sequence, Union
+from typing import Any, Dict, List, Sequence, Union
 
 from .api import BlockFailure, BlockOp
 from .errors import QuorumError
 from .protocol import MODES
 
 BlockResult = Union[Any, BlockFailure]  # a field-domain tensor, or a failure
+
+_UNSET = object()  # "keep the engine's default" sentinel for wave knobs
 
 
 class MPCBackend:
@@ -37,35 +44,201 @@ class MPCBackend:
     def fail(self, dead: frozenset) -> None:
         """Receive the session's cumulative dead-worker set (ids)."""
 
+    def dispatch_scale(self, spec) -> float:
+        """How much costlier one block dispatch is here than the host
+        baseline (scales the cost model's ``dispatch`` term in the
+        session's block search): 1.0 unless the backend serializes."""
+        return 1.0
+
+    def drain_spec(self, spec, shape, *, batch: int = 1, cost=None,
+                   tile_budget=None):
+        """A free re-tune for queued, not yet tiled work after attrition,
+        or ``None``; only backends with pool machinery answer."""
+        return None
+
+    def byzantine_stats(self) -> Dict[str, int]:
+        """Cumulative verified-decode counters: shares corrected out of a
+        decode and distinct workers evicted as liars."""
+        return {"corrections": 0, "evicted_devices": 0}
+
+    def scheduler_stats(self) -> Dict[str, int]:
+        """Cumulative wave-admission counters (waves, padded lanes,
+        deferred groups); zeros without wave machinery."""
+        return {"waves": 0, "padded_lanes": 0, "deferred_groups": 0}
+
+    def take_new_liars(self) -> set:
+        """Drain liar ids caught since the last call: roster device ids
+        for pool specs, protocol slots otherwise."""
+        return set()
+
 
 class LocalBackend(MPCBackend):
     """Single-process execution, one ``run`` per block (``mode`` =
-    ``"fused"`` | ``"kernel"`` | ``"reference"``)."""
+    ``"fused"`` | ``"kernel"`` | ``"reference"``).
+
+    Blocks whose spec carries an adversary budget go through
+    ``AGECMPCProtocol.run_verified``, with ``injector`` (a
+    :class:`~repro_torch.mpc.byzantine.FaultInjector`) corrupting shares
+    between the worker phase and the MAC check, its round counter one per
+    verified block.  Caught liars surface through :meth:`byzantine_stats`
+    and :meth:`take_new_liars` in roster device ids (slots without a
+    pool)."""
 
     name = "local"
 
-    def __init__(self, *, mode: str = "fused"):
+    def __init__(self, *, mode: str = "fused", injector=None):
         if mode not in MODES:
             raise ValueError(
                 f"unknown mode {mode!r}: expected fused|kernel|reference")
         self.mode = mode
+        self.injector = injector
+        self._round = 0
+        self._corrections = 0
+        self._evicted: set = set()
+        self._new_liars: set = set()
+
+    def byzantine_stats(self) -> Dict[str, int]:
+        return {"corrections": self._corrections,
+                "evicted_devices": len(self._evicted)}
+
+    def take_new_liars(self) -> set:
+        out, self._new_liars = self._new_liars, set()
+        return out
+
+    def _run_verified(self, op: BlockOp):
+        rnd, self._round = self._round, self._round + 1
+        y, verdict = op.proto.run_verified(
+            op.a, op.b, op.key, survivors=op.survivors,
+            injector=self.injector, round_id=rnd)
+        if verdict.liars:
+            self._corrections += verdict.corrected
+            placement = op.proto.spec.effective_placement
+            devs = {int(s) if placement is None else int(placement[s])
+                    for s in verdict.liars}
+            self._new_liars |= devs - self._evicted
+            self._evicted |= devs
+        return y
 
     def run_blocks(self, ops: Sequence[BlockOp]) -> List[BlockResult]:
         outs: List[BlockResult] = []
         for op in ops:
             try:
-                outs.append(op.proto.run(op.a, op.b, op.key,
-                                         survivors=op.survivors,
-                                         mode=self.mode))
-            except QuorumError as e:  # below-threshold mask: isolate
+                if op.proto.adversaries:
+                    outs.append(self._run_verified(op))
+                else:
+                    outs.append(op.proto.run(op.a, op.b, op.key,
+                                             survivors=op.survivors,
+                                             mode=self.mode))
+            except QuorumError as e:  # below quorum or budget: isolate
                 outs.append(BlockFailure(str(e)))
         return outs
 
 
-BACKENDS = {"local": LocalBackend}
+class BatchedBackend(MPCBackend):
+    """Engine-backed execution: one ``MPCEngine`` flush per op list.
+
+    Options go to the engine it builds (``spares``, ``max_batch``,
+    ``cost``, ``injector``, ``wave_scalars``, ``inflight``, ``recorder``,
+    ``device``), or onto a given ``engine``."""
+
+    name = "batched"
+    handles_attrition = True
+
+    def __init__(self, *, spares: int = 2, max_batch: int = 64, engine=None,
+                 cost=None, injector=None, wave_scalars=_UNSET,
+                 inflight=None, recorder=None, device=None):
+        from .engine import MPCEngine
+
+        if engine is None:
+            kw = {} if wave_scalars is _UNSET else dict(
+                wave_scalars=wave_scalars)
+            engine = MPCEngine(spares=spares, max_batch=max_batch,
+                               cost=cost, injector=injector,
+                               inflight=inflight, recorder=recorder,
+                               device=device, **kw)
+        else:
+            if injector is not None:
+                engine.injector = injector
+            if wave_scalars is not _UNSET:
+                engine.wave_scalars = wave_scalars
+            if inflight is not None:
+                engine.inflight = inflight
+            if recorder is not None:
+                engine.recorder = recorder
+        self.engine = engine
+        self._dead: frozenset = frozenset()
+
+    def fail(self, dead: frozenset) -> None:
+        self._dead = frozenset(dead)
+
+    def byzantine_stats(self) -> Dict[str, int]:
+        return self.engine.byzantine_stats()
+
+    def scheduler_stats(self) -> Dict[str, int]:
+        s = self.engine.stats
+        return {"waves": s["waves"], "padded_lanes": s["padded_lanes"],
+                "deferred_groups": s["deferred_groups"]}
+
+    def take_new_liars(self) -> set:
+        return self.engine.take_new_liars()
+
+    def _report_attrition(self, proto) -> None:
+        if not self._dead:
+            return
+        pool = self.engine.pool(spec=proto.spec)
+        if pool.device_map is not None:  # pool spec: ids are device ids
+            pool.fail_devices(sorted(self._dead))
+            return
+        ids = [w for w in sorted(self._dead) if w < pool.pool_size]
+        if ids:
+            pool.fail(ids)
+
+    def drain_spec(self, spec, shape, *, batch: int = 1, cost=None,
+                   tile_budget=None):
+        """Answer the session's drain question through the engine's pools
+        (attrition is reported first, so a drain can engage before the
+        first flush after a failure reaches the engine)."""
+        if spec.m is None or not self._dead:
+            return None
+        from .protocol import AGECMPCProtocol
+
+        self._report_attrition(AGECMPCProtocol.from_spec(spec))
+        return self.engine.drain_spec(spec, shape, batch=batch, cost=cost,
+                                      tile_budget=tile_budget)
+
+    def run_blocks(self, ops: Sequence[BlockOp]) -> List[BlockResult]:
+        if not ops:  # never flush a (possibly shared) engine for nothing
+            return []
+        if self._dead:  # once per distinct serving group, not per block
+            seen = set()
+            for op in ops:
+                if op.proto.group_key not in seen:
+                    seen.add(op.proto.group_key)
+                    self._report_attrition(op.proto)
+        rids = []
+        for op in ops:
+            try:
+                rids.append(self.engine.submit(
+                    op.a, op.b, key=op.key, survivors=op.survivors,
+                    spec=op.proto.spec))
+            except QuorumError as e:  # submit-time mask validation
+                rids.append(BlockFailure(str(e)))
+        results = self.engine.flush()
+        outs: List[BlockResult] = []
+        for rid in rids:
+            if isinstance(rid, BlockFailure):
+                outs.append(rid)
+            elif rid in results:
+                outs.append(results[rid])
+            else:
+                outs.append(BlockFailure(
+                    self.engine.failures.get(rid, "request not served")))
+        return outs
+
+
+BACKENDS = {"local": LocalBackend, "batched": BatchedBackend}
 
 _NOT_PORTED = {
-    "batched": "the batched engine slice (ROADMAP queue 1, item 7)",
     "sharded": "the sharded runner slice (ROADMAP queue 1, item 8)",
     "remote": "the transport slice (ROADMAP queue 1, item 9)",
 }

@@ -17,6 +17,9 @@ they are element-equal to it.
   :meth:`ProtocolPlan.stages`), one set per device: ``encode`` /
   ``worker_compute`` / ``exchange`` / ``decode`` plus the compositions
   ``front`` and ``fused``, and ``tags``;
+* **batched stages** for the engine's waves (:meth:`ProtocolPlan.batched`:
+  ``vfront``, ``vtags``, ``vdecode``), one launch per stage per wave
+  whatever the number of lanes;
 * **a survivor-solve LRU** (:meth:`ProtocolPlan.survivor_rows`,
   :meth:`ProtocolPlan.quorum_weights`), evicted least-recently-used at
   :data:`SOLVE_CACHE_SIZE` entries;
@@ -40,7 +43,7 @@ from ..core.age import AGECode, GeneralizedPolyCode, optimal_age_code, polydot_c
 from ..kernels import modmatmul as _kmm
 from ..kernels import polyeval as _kpe
 from .errors import MaskShapeError, ShapeContractError
-from .field import Field, as_int64, resolve_device
+from .field import Field, as_int64, generator, resolve_device
 from .lagrange import (
     ALPHA_POOL_LIMIT,
     ALPHA_SEARCH_SEED,
@@ -53,7 +56,7 @@ from .lagrange import (
     vandermonde,
 )
 
-# (scheme, s, t, z, lam, p, m)
+# (scheme, s, t, z, lam, p, m), plus the placement for pool specs
 PlanKey = Tuple
 
 # per-plan LRU capacity for survivor decode tables / quorum weights; each
@@ -100,14 +103,19 @@ class ProtocolStages:
     * ``tags(i_pts, gamma, offsets, rvec) -> [N]`` — per-share field MAC
       tags ``γ·⟨vec(I(α_n)), r⟩ + o_n mod p``.
 
+    ``encode``, ``worker_compute``, ``exchange`` and ``decode`` also take
+    operands with one leading lane dimension (``[B, m, m]``, injected
+    secrets and masks ``[B, ...]``, ``[B, N, m/t, m/t]``): the batched
+    stages of :meth:`ProtocolPlan.batched` are built from them.
+
     On a CUDA device every product is a kernel launch: ``worker_compute``
     goes to ``modmatmul_batched``, the skinny-K table products of
     ``encode``/``exchange``/``decode`` to ``polyeval`` (four launches per
     block: the exchange reads ``[h; mask]`` against the plan's
     ``[G-mix | mask table]`` in one, the fold inside the kernel, and decode
     reads the survivors' rows in place), and ``tags``'s product to
-    ``modmatmul``.  On the CPU the same wrappers run their plain versions,
-    which keep the reference stages' dispatch rule.
+    ``modmatmul``'s ``skinny`` instance.  On the CPU the same wrappers run
+    their plain versions, which keep the reference stages' dispatch rule.
     """
 
     encode: Callable
@@ -145,42 +153,48 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
         return _kpe.polyeval(v, x.contiguous(), p=p)
 
     def encode(a, b, gen, *, secrets=None):
+        lead = tuple(a.shape[:-2])           # () or (B,): the wave's lanes
         if secrets is None:
             sec_a = field.random(gen, (z, mt, ms))
             sec_b = field.random(gen, (z, ms, mt))
         else:
             sec_a, sec_b = (as_int64(x, device) for x in secrets)
-        at = a.T.reshape(t, mt, s, ms).permute(0, 2, 1, 3)
-        blocks_a = at.reshape(t * s, mt, ms)
-        blocks_b = b.reshape(s, ms, t, mt).permute(0, 2, 1, 3).reshape(
-            s * t, ms, mt)
-        terms_a = torch.cat([blocks_a, sec_a]).reshape(-1, mt * ms)
-        terms_b = torch.cat([blocks_b, sec_b]).reshape(-1, ms * mt)
-        f_a = table_mm(va, terms_a).reshape(n, mt, ms)
-        f_b = table_mm(vb, terms_b).reshape(n, ms, mt)
+        at = a.transpose(-1, -2).reshape(lead + (t, mt, s, ms))
+        blocks_a = at.transpose(-3, -2).reshape(lead + (t * s, mt, ms))
+        blocks_b = b.reshape(lead + (s, ms, t, mt)).transpose(-3, -2).reshape(
+            lead + (s * t, ms, mt))
+        terms_a = torch.cat([blocks_a, sec_a], dim=-3).reshape(
+            lead + (-1, mt * ms))
+        terms_b = torch.cat([blocks_b, sec_b], dim=-3).reshape(
+            lead + (-1, ms * mt))
+        f_a = table_mm(va, terms_a).reshape(lead + (n, mt, ms))
+        f_b = table_mm(vb, terms_b).reshape(lead + (n, ms, mt))
         return f_a, f_b
 
     def worker_compute(f_a, f_b):
-        return _kmm.modmatmul_batched(f_a.contiguous(), f_b.contiguous(),
-                                      p=p)                   # [n, mt, mt]
+        lead = tuple(f_a.shape[:-3])
+        h = _kmm.modmatmul_batched(f_a.reshape(-1, mt, ms).contiguous(),
+                                   f_b.reshape(-1, ms, mt).contiguous(), p=p)
+        return h.reshape(lead + (n, mt, mt))
 
     def exchange(h, gen, *, mask_sum=None):
+        lead = tuple(h.shape[:-3])
         mask_sum = (field.random(gen, (z, mt, mt)) if mask_sum is None
                     else as_int64(mask_sum, device))
         # G-mix and mask term in one product: [g_mix_t | vand_g_secret]
         # against the H-points stacked on the mask
         i_pts = _kpe.polyeval(
-            mix, (h.reshape(n, mt * mt).contiguous(),
-                  mask_sum.reshape(z, mt * mt).contiguous()), p=p)
-        return i_pts.reshape(n, mt, mt)
+            mix, (h.reshape(lead + (n, mt * mt)).contiguous(),
+                  mask_sum.reshape(lead + (z, mt * mt)).contiguous()), p=p)
+        return i_pts.reshape(lead + (n, mt, mt))
 
     def decode(i_pts, idx, rows):
         # the survivors' rows, gathered by the kernel
+        lead = tuple(i_pts.shape[:-3])
         y_blocks = _kpe.polyeval(
-            rows, i_pts.reshape(i_pts.shape[0], mt * mt).contiguous(), p=p,
-            rows=idx)
-        grid = y_blocks.reshape(t, t, mt, mt)                 # [l, i, r, c]
-        return grid.permute(1, 2, 0, 3).reshape(m, m)
+            rows, i_pts.reshape(lead + (i_pts.shape[-3], mt * mt)).contiguous(),
+            p=p, rows=idx)
+        return _assemble(y_blocks, t, m)
 
     def front(a, b, gen):
         return exchange(worker_compute(*encode(a, b, gen)), gen)
@@ -198,6 +212,68 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
     return ProtocolStages(
         encode=encode, worker_compute=worker_compute, exchange=exchange,
         decode=decode, front=front, fused=fused, tags=tags)
+
+
+def _assemble(y_blocks: torch.Tensor, t: int, m: int) -> torch.Tensor:
+    """Decoded blocks ``[..., t², (m/t)²]`` (row u = i + t·l) as ``Y [...,
+    m, m]``."""
+    mt = m // t
+    lead = tuple(y_blocks.shape[:-2])
+    grid = y_blocks.reshape(lead + (t, t, mt, mt))            # [l, i, r, c]
+    return grid.movedim(-4, -2).reshape(lead + (m, m))
+
+
+def _build_batched(plan: "ProtocolPlan", kind: str,
+                   device: torch.device) -> Callable:
+    """One batched stage of the engine's waves, on ``device``.
+
+    * ``vfront(a [B,m,m], b [B,m,m], keys) -> i_pts [B, N, m/t, m/t]``:
+      lane b draws its secrets and mask from its own key's generator, in
+      the order ``front`` does, so a request's I-points do not depend on
+      the wave it lands in.  Three ``polyeval`` launches (encode A, encode
+      B, the exchange) and one ``modmatmul_batched`` at W = B·N per wave.
+    * ``vtags(i_pts, gamma [B], offsets [B,N], rvec [B,(m/t)²]) -> [B, N]``:
+      one skinny ``modmatmul_batched`` launch (W = B) and the ``γ·v + o``
+      epilogue on ``[B, N]``.
+    * ``vdecode(i_pts [B,...], idx, rows, lanes=None) -> y [B', m, m]``:
+      one ``polyeval`` launch for the lanes of one survivor pattern, all B
+      (``lanes=None``) or those a device index ``lanes`` names.
+    """
+    p, z, m, t, s = plan.p, plan.z, plan.m, plan.t, plan.s
+    mt, ms, n = m // t, m // s, plan.n_workers
+    stages = plan.stages(device)
+
+    def vfront(a, b, keys):
+        lanes = a.shape[0]
+        sec_a = torch.empty((lanes, z, mt, ms), dtype=torch.int64,
+                            device=device)
+        sec_b = torch.empty((lanes, z, ms, mt), dtype=torch.int64,
+                            device=device)
+        mask = torch.empty((lanes, z, mt, mt), dtype=torch.int64,
+                           device=device)
+        for i, key in enumerate(keys):
+            gen = generator(key, device)
+            for out in (sec_a[i], sec_b[i], mask[i]):   # front's draw order
+                torch.randint(0, p, out.shape, generator=gen, out=out)
+        f_a, f_b = stages.encode(a, b, None, secrets=(sec_a, sec_b))
+        return stages.exchange(stages.worker_compute(f_a, f_b), None,
+                               mask_sum=mask)
+
+    def vtags(i_pts, gamma, offsets, rvec):
+        lanes = i_pts.shape[0]
+        v = _kmm.modmatmul_batched(
+            i_pts.reshape(lanes, n, mt * mt).contiguous(),
+            rvec.reshape(lanes, mt * mt, 1).contiguous(), p=p)[..., 0]
+        return torch.remainder(gamma[:, None] * v + offsets, p)
+
+    def vdecode(i_pts, idx, rows, lanes=None):
+        if lanes is None:
+            return stages.decode(i_pts, idx, rows)
+        flat = i_pts.reshape(-1, mt * mt)
+        per_lane = (lanes[:, None] * i_pts.shape[1] + idx[None, :]).contiguous()
+        return _assemble(_kpe.polyeval(rows, flat, p=p, rows=per_lane), t, m)
+
+    return {"vfront": vfront, "vtags": vtags, "vdecode": vdecode}[kind]
 
 
 @dataclasses.dataclass(eq=False)  # identity semantics (ndarray fields;
@@ -287,6 +363,16 @@ class ProtocolPlan:               # the cache's contract is `is`, not `==`)
         dev = resolve_device(device)
         return self.runner(("stages", str(dev)),
                            lambda: _build_stages(self, dev))
+
+    def batched(self, kind: str, device=None) -> Callable:
+        """The engine's batched stage ``kind`` (``"vfront"``, ``"vtags"``
+        or ``"vdecode"``, see :func:`_build_batched`) on ``device``,
+        attached to this plan as the runner ``(kind, device)``."""
+        if kind not in ("vfront", "vtags", "vdecode"):
+            raise ValueError(f"unknown batched stage {kind!r}")
+        dev = resolve_device(device)
+        return self.runner((kind, str(dev)),
+                           lambda: _build_batched(self, kind, dev))
 
     # ------------------------------------------------- survivor-solve cache
     def _solve_cached(self, key: Tuple, solve: Callable[[], object]):
@@ -531,16 +617,26 @@ _MISSES = 0
 
 
 def get_plan(scheme: str, s: int, t: int, z: int, lam: Optional[int],
-             field: Field, m: int) -> ProtocolPlan:
-    """Memoized :func:`build_plan`, the entry point protocols use."""
+             field: Field, m: int, *,
+             placement: Optional[Tuple[int, ...]] = None) -> ProtocolPlan:
+    """Memoized :func:`build_plan`, the entry point protocols use.
+
+    ``placement`` (heterogeneous pools) qualifies the cache key without
+    changing what is built: the plan returned IS the placement-free plan,
+    registered under the qualified key as well."""
     global _HITS, _MISSES
     key: PlanKey = (scheme, s, t, z, lam, field.p, m)
+    if placement is not None:
+        key = key + (tuple(int(d) for d in placement),)
     with _LOCK:
         plan = _CACHE.get(key)
         if plan is not None:
             _HITS += 1
             return plan
-    built = build_plan(scheme, s, t, z, lam, field, m)
+    if placement is None:
+        built = build_plan(scheme, s, t, z, lam, field, m)
+    else:  # alias the shared placement-free plan (one build, one stage set)
+        built = get_plan(scheme, s, t, z, lam, field, m)
     with _LOCK:
         plan = _CACHE.get(key)
         if plan is not None:  # lost a benign build race: keep the first

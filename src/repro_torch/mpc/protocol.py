@@ -34,8 +34,8 @@ from ..core.age import GeneralizedPolyCode
 from ..kernels import modmatmul as _kmm
 from ..kernels import polyeval as _kpe
 from ..kernels.barrett import mod_p
-from .api import MPCSpec, _not_ported
-from .errors import QuorumError
+from .api import MPCSpec
+from .errors import AdversaryBudgetError, QuorumError
 from .field import (
     DEFAULT_FIELD,
     Field,
@@ -80,9 +80,10 @@ class AGECMPCProtocol:
     lam  : AGE gap; ``None`` solves ``min_λ`` (eq. (13))
     scheme : "age" | "entangled" | "polydot"
 
-    ``pool``, ``placement`` and ``adversaries`` keep the reference's field
-    names; any value but the default raises ``NotImplementedError`` until
-    their slices are ported.
+    ``pool`` and ``placement`` (the device roster and the roster device
+    serving each slot) only group and route attrition: the phase math and
+    the plan tables do not depend on them.  ``adversaries`` > 0 routes
+    :meth:`run` through the MAC-verified decode.
     """
 
     s: int
@@ -99,7 +100,6 @@ class AGECMPCProtocol:
     def __post_init__(self):
         if self.m % self.s or self.m % self.t:
             raise ValueError(f"need s|m and t|m: s={self.s} t={self.t} m={self.m}")
-        _not_ported(self.pool, self.placement, self.adversaries)
 
     # ------------------------------------------------------------------ spec
     @classmethod
@@ -108,12 +108,16 @@ class AGECMPCProtocol:
         """A protocol instance for one :class:`MPCSpec` at block side
         ``m`` (defaults to ``spec.m``)."""
         return cls(s=spec.s, t=spec.t, z=spec.z, m=spec._block(m),
-                   lam=spec.lam, scheme=spec.scheme, field=spec.field)
+                   lam=spec.lam, scheme=spec.scheme, field=spec.field,
+                   pool=spec.pool, placement=spec.effective_placement,
+                   adversaries=spec.adversaries)
 
     @cached_property
     def spec(self) -> MPCSpec:
         return MPCSpec(s=self.s, t=self.t, z=self.z, lam=self.lam,
-                       scheme=self.scheme, field=self.field, m=self.m)
+                       scheme=self.scheme, field=self.field, m=self.m,
+                       pool=self.pool, placement=self.placement,
+                       adversaries=self.adversaries)
 
     @property
     def plan_key(self) -> PlanKey:
@@ -260,12 +264,130 @@ class AGECMPCProtocol:
             return self.run_reference(a, b, gen, survivors=survivors)
         if mode == "kernel":
             return self._run_kernel(a, b, gen, survivors=survivors)
+        if self.adversaries:
+            # a Byzantine budget makes verification non-optional (equal to
+            # the honest run when nobody lies)
+            return self.run_verified(a, b, key, survivors=survivors,
+                                     device=dev)[0]
         stages = self.plan.stages(dev)
         if survivors is None:
             return stages.fused(a, b, gen)
         idx = self.survivor_prefix(survivors)
         idx_t, rows_t = self.plan.survivor_tables(tuple(idx), dev)
         return stages.decode(stages.front(a, b, gen), idx_t, rows_t)
+
+    # -------------------------------------------------- Byzantine tolerance
+    def run_verified(self, a, b, key, *,
+                     survivors: Optional[np.ndarray] = None,
+                     injector=None, round_id: int = 0, device=None):
+        """All three phases with MAC-verified decode.
+
+        Returns ``(y, verdict)``.  ``y`` equals the honest ``run`` whenever
+        at most ``spec.adversaries`` shares were corrupted: liars are found
+        by their failed tags, excluded, and the decode interpolates from
+        the first ``t²+z`` honest survivors.  ``injector`` (a
+        :class:`~repro_torch.mpc.byzantine.FaultInjector`) corrupts shares
+        and tags between tagging and the check.  Raises
+        :class:`~repro_torch.mpc.errors.AdversaryBudgetError` when more
+        liars are found than the budget tolerates.  The I-points, their
+        tags and every correction stay on the device.
+        """
+        from . import byzantine as byz
+
+        dev = _device_of(a, device)
+        gen = generator(key, dev)
+        i_pts = self.plan.stages(dev).front(as_int64(a, dev),
+                                            as_int64(b, dev), gen)
+        tags = byz.share_tags(self.plan, i_pts, key)
+        if injector is not None:
+            i_pts, tags = injector.corrupt(self.plan, i_pts, tags, round_id)
+        return self.verified_decode(i_pts, tags, key, survivors=survivors)
+
+    def verified_decode(self, i_points, tags, key, *,
+                        survivors: Optional[np.ndarray] = None, device=None):
+        """Check the shares' MACs, exclude liars, decode from the honest
+        survivors.
+
+        Validates the mask at the verified quorum ``t²+z+2a``, recomputes
+        every slot's tag, and decodes through the plan's survivor tables
+        like a dropout mask.  The honesty mask comes to the host (it
+        decides which rows decode).  Returns ``(y, Verdict)``.
+        """
+        from . import byzantine as byz
+
+        spec = self.spec
+        budget = spec.adversaries
+        n = self.n_workers
+        dev = _device_of(i_points, device)
+        i_points = as_int64(i_points, dev)
+        spec.validate_survivors(survivors)       # shape + verified quorum
+        alive = (np.ones(n, bool) if survivors is None
+                 # analysis: allow(host-sync): survivor masks are host data
+                 else np.asarray(survivors, bool))
+        honest = byz.check_shares(self.plan, i_points, tags, key)
+        liars = np.nonzero(alive & ~honest)[0]
+        if len(liars) > budget:
+            raise AdversaryBudgetError(
+                f"adversary budget exhausted: {len(liars)} corrupted "
+                f"shares detected > budget a={budget}",
+                spec=spec, quorum=budget, alive=int(alive.sum()),
+                slots=liars)
+        idx = spec.validate_survivors(alive & honest, corrected=True)
+        idx_t, rows_t = self.plan.survivor_tables(tuple(idx), dev)
+        y = self.plan.stages(dev).decode(i_points, idx_t, rows_t)
+        return y, byz.Verdict(liars=tuple(int(w) for w in liars),
+                              corrected=int(len(liars)),
+                              quorum=tuple(int(i) for i in idx))
+
+    def decode_corrected(self, i_points, *,
+                         survivors: Optional[np.ndarray] = None,
+                         max_errors: Optional[int] = None, seed: int = 0,
+                         device=None):
+        """Tag-free error-correcting decode (Berlekamp–Welch).
+
+        Compresses each survivor's share to one scalar with a seeded random
+        vector (the reference's NumPy draw, so both packages compress
+        alike), locates the corrupted evaluations with
+        :func:`~repro_torch.mpc.byzantine.locate_errors` over the plan's
+        α-set, and decodes from the first ``t²+z`` clean survivors.  The
+        compression is one skinny ``modmatmul`` on the device; only the
+        ``[alive]`` scalars come to the host.  Returns ``(y, liar_slots)``.
+        """
+        from . import byzantine as byz
+
+        budget = (self.spec.adversaries if max_errors is None
+                  else int(max_errors))
+        n = self.n_workers
+        t2z = self.recovery_threshold
+        p = self.field.p
+        spec = self.spec if max_errors is None else dataclasses.replace(
+            self.spec, adversaries=budget)
+        spec.validate_survivors(survivors)       # shape + t²+z+2a quorum
+        alive = (np.ones(n, bool) if survivors is None
+                 # analysis: allow(host-sync): survivor masks are host data
+                 else np.asarray(survivors, bool))
+        aidx = np.nonzero(alive)[0]
+        dev = _device_of(i_points, device)
+        pts = torch.remainder(as_int64(i_points, dev), p)
+        flat = pts.index_select(0, torch.from_numpy(aidx).to(dev)).reshape(
+            len(aidx), -1)
+        rng = np.random.default_rng(seed)
+        rvec = rng.integers(0, p, size=flat.shape[1], dtype=np.int64)
+        comp = _kmm.modmatmul(flat.contiguous(),
+                              torch.from_numpy(rvec).to(dev).reshape(-1, 1),
+                              p=p)[:, 0]
+        # analysis: allow(host-sync): one scalar per survivor for the solve
+        comp = comp.cpu().numpy()
+        bad = byz.locate_errors(self.field, self.plan.alphas[aidx], comp,
+                                t2z, budget)
+        liars = aidx[bad]
+        clean = alive.copy()
+        clean[liars] = False
+        idx = spec.validate_survivors(clean, corrected=True)
+        idx_t, rows_t = self.plan.survivor_tables(tuple(int(i) for i in idx),
+                                                  dev)
+        y = self.plan.stages(dev).decode(pts, idx_t, rows_t)
+        return y, tuple(int(w) for w in liars)
 
     def run_reference(self, a: torch.Tensor, b: torch.Tensor,
                       gen: torch.Generator, *,

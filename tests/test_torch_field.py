@@ -112,7 +112,8 @@ CONFIG_FILES = ["models/config.py"] + sorted(
 
 @pytest.mark.parametrize("name", ["core/__init__.py", "core/age.py",
                                   "core/worker_counts.py",
-                                  "core/overheads.py", "mpc/errors.py"]
+                                  "core/overheads.py", "mpc/errors.py",
+                                  "mpc/workers.py"]
                          + CONFIG_FILES)
 def test_framework_free_copies_are_verbatim(name):
     orig = (ROOT / "src/repro" / name).read_bytes()

@@ -14,10 +14,13 @@ and 2^-8 in relative Frobenius norm.  The WKV-6 kernel is held within
 rms, and 1e-5 in relative Frobenius norm.  The served models' logits are
 held at 1e-4 against the same model on the CPU (sums in another order).
 
-Where a wrapper chooses between kernels (``modmatmul*``: ``tensor_core`` or
-``cuda_core``; ``flash_attention``: ``wgmma``, ``mma_sync`` or
-``cuda_core``), each instance is held here, the ones the chooser would not
-pick through the module's private ``_launch``."""
+Where a wrapper chooses between kernels (``modmatmul*``: ``tensor_core``,
+``skinny`` or ``cuda_core``; ``flash_attention``: ``wgmma``, ``mma_sync``
+or ``cuda_core``), each instance is held here, the ones the chooser would
+not pick through the module's private ``_launch``.  The batched engine's
+stages and the verified backends are held against the same calls on the
+CPU, and the kernels that size their shared memory per launch against a
+second card where the process sees one."""
 import dataclasses
 
 import numpy as np
@@ -116,7 +119,8 @@ def test_gpu_modmatmul_tensor_core_equals_plain(cuda, p):
 @pytest.mark.gpu
 def test_gpu_modmatmul_chooser_routes_and_counts(cuda):
     """Full 64x64 tiles take the tensor cores, the tags shape (N = 1) the
-    CUDA cores with split K; each launch counted under its instance."""
+    skinny instance, a small ragged product the CUDA cores; each launch
+    counted under its instance."""
     p = P_DEFAULT
     g = torch.Generator(device=cuda)
     g.manual_seed(11)
@@ -125,10 +129,13 @@ def test_gpu_modmatmul_chooser_routes_and_counts(cuda):
     assert torch.equal(modmatmul_batched(a, b, p=p), modmatmul_plain(a, b, p=p))
     v, r = _rand(g, p, (17, 2**16)), _rand(g, p, (2**16, 1))
     assert torch.equal(modmatmul(v, r, p=p), modmatmul_plain(v, r, p=p))
+    x, y = _rand(g, p, (33, 70)), _rand(g, p, (70, 45))
+    assert torch.equal(modmatmul(x, y, p=p), modmatmul_plain(x, y, p=p))
     torch.cuda.synchronize()
-    assert instance_counts()["modmatmul_batched"] == {"tensor_core": 1,
-                                                      "cuda_core": 0}
-    assert instance_counts()["modmatmul"] == {"tensor_core": 0, "cuda_core": 1}
+    assert instance_counts()["modmatmul_batched"] == {
+        "tensor_core": 1, "skinny": 0, "cuda_core": 0}
+    assert instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
+                                              "cuda_core": 1}
     with pytest.raises(ValueError, match="unknown modmatmul instance"):
         mm._launch(a, b, p=p, instance="bogus")
 
@@ -466,3 +473,143 @@ def test_gpu_rwkv_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), Engine(cfg, cpu_params, device="cpu")
                        .generate(toks, 5))
+
+
+# ------------------------------------------------ the skinny instance
+# (W, M, K, N): the tags' shape cut in K, a wave of 8 lanes, ragged and odd
+# K (scalar loads), N of 2, 3 and 4, rows past one pass (M > 32), K = 1
+SKINNY_SHAPES = [(1, 17, 2**16, 1), (8, 17, 2**14, 1), (1, 17, 300001, 1),
+                 (3, 5, 7777, 2), (2, 9, 4096, 3), (1, 40, 2048, 4),
+                 (1, 70, 4096, 1), (2, 1, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_skinny_instance_equals_plain(cuda, p):
+    """Every skinny shape equal to the plain version, chosen through the
+    wrappers and forced through ``_launch``; the all-(p-1) corner at a K
+    of many fold windows equal to the closed form; a view 8 bytes off
+    16-byte alignment takes the scalar loads and stays exact."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(p % 983)
+    reset_launch_counts()
+    for w, m, k, n in SKINNY_SHAPES:
+        a, b = _rand(g, p, (w, m, k)), _rand(g, p, (w, k, n))
+        want = modmatmul_plain(a, b, p=p)
+        assert mm.choose_instance(w, m, k, n) == "skinny"
+        assert torch.equal(modmatmul_batched(a, b, p=p), want), (w, m, k, n)
+        assert torch.equal(mm._launch(a, b, p=p, instance="skinny"), want)
+    k = 3 * 2048 * 8 + 5
+    a = torch.full((2, 17, k), p - 1, dtype=torch.int64, device=cuda)
+    b = torch.full((2, k, 1), p - 1, dtype=torch.int64, device=cuda)
+    assert bool((modmatmul_batched(a, b, p=p) == (pow(p - 1, 2, p) * k) % p)
+                .all())
+    base = _rand(g, p, (17, 4097))
+    view, r = base[:, 1:], _rand(g, p, (4096, 1))
+    assert view.data_ptr() % 16 == 8
+    assert torch.equal(mm._launch(view.contiguous()[None], r[None], p=p,
+                                  instance="skinny")[0],
+                       modmatmul_plain(view, r, p=p))
+    torch.cuda.synchronize()
+    assert instance_counts()["modmatmul_batched"]["skinny"] == \
+        len(SKINNY_SHAPES) + 1
+
+
+# --------------------------------------- F1: a second card in one process
+@pytest.mark.gpu
+def test_gpu_kernels_launch_on_a_second_card(cuda):
+    """polyeval and rwkv6 set their shared-memory size on each launch, so
+    after a launch on cuda:0 they launch on cuda:1 too (decided here, not
+    at collection: skips where the process sees one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards in one process")
+    p = P_DEFAULT
+    for index in (0, 1, 0):
+        dev = torch.device("cuda", index)
+        g = torch.Generator(device=dev)
+        g.manual_seed(index)
+        v, t = _rand(g, p, (17, 19)), _rand(g, p, (19, 4096))
+        assert torch.equal(polyeval(v, t, p=p), polyeval_plain(v, t, p=p))
+        r, k, vv, w, u = _wkv_operands(g, 1, 64, 32, torch.bfloat16, -6.0, False)
+        out, state = rwkv6(r, k, vv, w, u)
+        want_out, want_state = rwkv6_plain(r, k, vv, w, u)
+        assert out.device == dev
+        assert wkv_agreement(out, want_out)["ok"]
+        assert wkv_agreement(state, want_state)["ok"]
+        torch.cuda.synchronize(dev)
+
+
+# ------------------------------------ the batched engine and verified paths
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_batched_stages_equal_the_cpu(cuda, p):
+    """A wave's vfront, vtags and vdecode on the card, one launch per stage
+    whatever the number of lanes: each lane's I-points equal the
+    single-request ``front`` from the same key on the card (the card's
+    and the CPU's generators draw differently), the tags equal the CPU
+    stage's on the same I-points, and every lane decodes exactly."""
+    spec = MPCSpec(s=2, t=2, z=2, m=64, field=Field(p))
+    plan = spec.plan()
+    rng = np.random.default_rng(p % 89)
+    for lanes in (1, 8):
+        a = torch.from_numpy(rng.integers(0, p, (lanes, 64, 64)))
+        b = torch.from_numpy(rng.integers(0, p, (lanes, 64, 64)))
+        keys = list(range(lanes))
+        reset_launch_counts()
+        got = plan.batched("vfront", cuda)(a.to(cuda), b.to(cuda), keys)
+        torch.cuda.synchronize()
+        front = launch_counts()
+        gam = torch.from_numpy(rng.integers(1, p, lanes))
+        offs = torch.from_numpy(rng.integers(0, p, (lanes, 17)))
+        rv = torch.from_numpy(rng.integers(0, p, (lanes, 32 * 32)))
+        tags = plan.batched("vtags", cuda)(got, gam.to(cuda), offs.to(cuda),
+                                           rv.to(cuda))
+        idx, rows = plan.survivor_tables((0, 2, 3, 7, 11, 16), cuda)
+        ys = plan.batched("vdecode", cuda)(got, idx, rows)
+        some = plan.batched("vdecode", cuda)(
+            got, idx, rows, torch.tensor([lanes - 1], device=cuda))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert front["polyeval"] == 3 and front["modmatmul_batched"] == 1
+        assert counts["polyeval"] == 5 and counts["modmatmul_batched"] == 2
+        assert instance_counts()["modmatmul_batched"]["skinny"] == 1
+        stages = plan.stages(cuda)
+        for lane, key in enumerate(keys):
+            gen = torch.Generator(device=cuda)
+            gen.manual_seed(key)
+            assert torch.equal(got[lane], stages.front(
+                a[lane].to(cuda), b[lane].to(cuda), gen))
+        assert torch.equal(tags.cpu(), plan.batched("vtags", "cpu")(
+            got.cpu(), gam, offs, rv))
+        for lane in range(lanes):
+            exact = np.array((a[lane].numpy().T.astype(object)
+                              @ b[lane].numpy().astype(object)) % p, np.int64)
+            np.testing.assert_array_equal(ys[lane].cpu().numpy(), exact)
+        assert torch.equal(some[0], ys[lanes - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["local", "batched"])
+def test_gpu_verified_sessions_equal_the_cpu(cuda, backend):
+    """Scripted corruption through a verified session on the card: exact,
+    the same corrections, evictions and injector log as on the CPU."""
+    from repro_torch.mpc import FaultInjector
+
+    spec = MPCSpec(s=2, t=2, z=2, m=16, adversaries=2)
+    sched = {r: [(3, "tamper"), (9, "flip")] for r in range(8)}
+    sched[1] = [(5, "stale"), (6, "tag")]
+    rng = np.random.default_rng(77)
+    a = rng.integers(0, spec.field.p, (20, 40))
+    b = rng.integers(0, spec.field.p, (40, 24))
+    want = np.array((a.astype(object) @ b.astype(object)) % spec.field.p,
+                    np.int64)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        inj = FaultInjector(seed=5, schedule=sched)
+        sess = connect(spec, backend=backend, injector=inj, device=dev,
+                       **({"max_batch": 4, "wave_scalars": None}
+                          if backend == "batched" else {}))
+        y = sess.matmul(a, b, encoded=True)
+        np.testing.assert_array_equal(y.cpu().numpy(), want)
+        runs[str(dev)] = (dict(sess.stats), set(sess._dead), list(inj.log))
+    assert runs[str(cuda)] == runs["cpu"]

@@ -191,3 +191,62 @@ def test_polyeval_worst_case_corner(p):
     want = np.full((17, 40), (pow(p - 1, 2, p) * 9) % p)
     np.testing.assert_array_equal(polyeval(T(vand), T(terms), p=p).numpy(),
                                   want)
+
+
+# ------------------------------------------------------ the skinny instance
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("w,m,k,n", [(1, 17, 4096, 1), (1, 17, 4093, 1),
+                                     (3, 17, 1000, 1), (2, 5, 777, 2),
+                                     (1, 40, 300, 4), (1, 1, 1, 1)])
+def test_skinny_shapes_equal_pallas_modmatmul(p, w, m, k, n):
+    """The skinny instance's shapes (the tags' N = 1, ragged K, a wave of
+    lanes, N up to 4): the plain version the CPU runs equals JAX's
+    ``modmatmul`` at W = 1 and ``modmatmul_batched`` per lane
+    (``interpret=True``) and the object-dtype product."""
+    from repro_torch.kernels.modmatmul import choose_instance, modmatmul_plain
+
+    assert choose_instance(w, m, k, n) == "skinny"
+    rng = np.random.default_rng(w * 10_000 + m * 100 + k + n)
+    a = rng.integers(0, p, (w, m, k))
+    b = rng.integers(0, p, (w, k, n))
+    got = modmatmul_batched(T(a), T(b), p=p).numpy()
+    np.testing.assert_array_equal(got, modmatmul_plain(T(a), T(b), p=p).numpy())
+    for lane in range(w):
+        want = np.array((a[lane].astype(object) @ b[lane].astype(object)) % p,
+                        np.int64)
+        np.testing.assert_array_equal(got[lane], want)
+        if lane == 0 and p == P_DEFAULT:
+            np.testing.assert_array_equal(got[0], np.asarray(j_modmatmul(
+                jnp.asarray(a[0]), jnp.asarray(b[0]), p=p, bm=8, bn=8,
+                bk=128, interpret=True)))
+            np.testing.assert_array_equal(
+                modmatmul(T(a[0]), T(b[0]), p=p).numpy(), got[0])
+    if p == P_DEFAULT and w > 1:
+        np.testing.assert_array_equal(got, np.asarray(j_modmatmul_batched(
+            jnp.asarray(a), jnp.asarray(b), p=p, interpret=True)))
+
+
+def test_skinny_grid_rules():
+    from repro_torch.kernels.modmatmul import (
+        SKINNY_ROWS,
+        choose_instance,
+        skinny_blocks,
+        skinny_rows,
+    )
+
+    assert skinny_rows(17, 1) == 20 and skinny_rows(5, 1) == 8
+    assert skinny_rows(100, 1) == 32 and skinny_rows(9, 2) == 16
+    assert skinny_rows(3, 3) == 8 and skinny_rows(40, 4) == 8
+    for n, rows in SKINNY_ROWS.items():
+        assert all(r <= 32 // n for r in rows)
+    # up to 6 blocks per SM over the grid, each thread taking >= 8 steps
+    # of K: the tags' shape is capped by the steps, a wave of 8 lanes
+    # shares the 6 per SM, a short K gets one block
+    assert skinny_blocks(1, 17, 2**20, 1, 132) == 256
+    assert skinny_blocks(8, 17, 2**20, 1, 132) == 99
+    assert skinny_blocks(64, 17, 2**20, 1, 132) == 13
+    assert skinny_blocks(1, 40, 2**20, 1, 132) == 256
+    assert skinny_blocks(1, 17, 4096, 1, 132) == 1
+    assert skinny_blocks(1, 17, 7, 1, 132) == 1
+    assert choose_instance(1, 17, 2**20, 5) == "cuda_core"
+    assert choose_instance(1, 17, 0, 1) == "cuda_core"

@@ -129,7 +129,7 @@ def test_the_run_bound_is_tight():
 # ------------------------------------------------------------- the choosers
 @pytest.mark.parametrize("shape,want", [
     ((17, 1024, 1024, 1024), "tensor_core"),   # the main path's worker product
-    ((1, 17, 2**20, 1), "cuda_core"),          # the tags stage: N = 1, split K
+    ((1, 17, 2**20, 1), "skinny"),             # the tags stage: N = 1
     ((3, 33, 65, 17), "cuda_core"),            # tiny, ragged
     ((2, 64, 7, 64), "tensor_core"),           # one full tile, short K
     ((4, 256, 3000, 63), "cuda_core"),         # N one short of a tile

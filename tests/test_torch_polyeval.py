@@ -148,3 +148,77 @@ def test_exchange_table_is_g_mix_beside_the_mask_table(z):
     want = (polyeval(tab["g_mix_t"], h.reshape(n, -1), p=p)
             + polyeval(tab["vand_g_secret"], mask.reshape(z, -1), p=p)) % p
     assert torch.equal(got.reshape(n, -1), want)
+
+
+# (form, p, B, N, K, R or K2, C): the batched forms one launch serves for a
+# wave of B lanes: lanes of one tensor, lanes of a pair, shared rows of
+# each lane, and per-lane rows into one flattened tensor
+BATCHED = [
+    ("lanes", P_DEFAULT, 3, 17, 6, 0, 1001),
+    ("lanes", P_MERSENNE31, 8, 17, 6, 0, 64),
+    ("pair", P_DEFAULT, 4, 17, 17, 2, 333),
+    ("pair", P_MERSENNE31, 2, 17, 17, 2, 65),
+    ("rows", P_DEFAULT, 5, 4, 6, 17, 77),
+    ("rows", P_MERSENNE31, 2, 9, 40, 12, 33),
+    ("lane_rows", P_DEFAULT, 3, 4, 6, 17, 101),
+    ("lane_rows", P_MERSENNE31, 4, 4, 6, 17, 64),
+]
+
+
+@pytest.mark.parametrize("case", BATCHED, ids=str)
+def test_polyeval_batched_forms_equal_jax_per_lane(case):
+    """Every lane of a batched call equals JAX's ``polyeval_ref`` (and the
+    Pallas kernel, where K fits its window) on that lane's stacked rows."""
+    form, p, lanes, n, k, other, c = case
+    rng = np.random.default_rng(lanes * 1000 + n + k + c)
+    if form == "lanes":
+        terms = rng.integers(0, p, (lanes, k, c))
+        vand = rng.integers(0, p, (n, k))
+        got = polyeval(T(vand), T(terms), p=p)
+        stacked = list(terms)
+    elif form == "pair":
+        top = rng.integers(0, p, (lanes, k, c))
+        bottom = rng.integers(0, p, (lanes, other, c))
+        vand = rng.integers(0, p, (n, k + other))
+        got = polyeval(T(vand), (T(top), T(bottom)), p=p)
+        stacked = [np.concatenate([x, y]) for x, y in zip(top, bottom,
+                                                          strict=True)]
+    elif form == "rows":
+        src = rng.integers(0, p, (lanes, other, c))
+        idx = np.sort(rng.choice(other, k, replace=k > other))
+        vand = rng.integers(0, p, (n, k))
+        got = polyeval(T(vand), T(src), p=p, rows=T(idx))
+        stacked = [x[idx] for x in src]
+    else:
+        src = rng.integers(0, p, (lanes * other, c))
+        idx = np.stack([np.sort(rng.choice(other, k, replace=False)) + other * b
+                        for b in rng.permutation(lanes)])
+        vand = rng.integers(0, p, (n, k))
+        got = polyeval(T(vand), T(src), p=p, rows=T(idx))
+        stacked = [src[i] for i in idx]
+    assert got.shape == (lanes, n, c)
+    for lane, want_rows in enumerate(stacked):
+        want = np.asarray(ref.polyeval_ref(jnp.asarray(vand),
+                                           jnp.asarray(want_rows), p=p))
+        np.testing.assert_array_equal(got[lane].numpy(), want)
+        if vand.shape[1] <= acc_window(p):
+            np.testing.assert_array_equal(got[lane].numpy(), np.asarray(
+                j_polyeval(jnp.asarray(vand), jnp.asarray(want_rows), p=p,
+                           interpret=True)))
+
+
+def test_polyeval_refuses_malformed_batched_forms():
+    a = torch.zeros((4, 6), dtype=torch.int64)
+    lanes = torch.zeros((2, 6, 5), dtype=torch.int64)
+    with pytest.raises(ShapeContractError):
+        polyeval(a, (lanes, torch.zeros((3, 1, 5), dtype=torch.int64)),
+                 p=P_DEFAULT)
+    with pytest.raises(ShapeContractError):
+        polyeval(a, (lanes, torch.zeros((1, 5), dtype=torch.int64)),
+                 p=P_DEFAULT)
+    with pytest.raises(ShapeContractError, match="per-lane rows"):
+        polyeval(a, lanes, p=P_DEFAULT, rows=torch.zeros((2, 6),
+                                                         dtype=torch.int64))
+    with pytest.raises(TypeError, match="matrix"):
+        polyeval(a, lanes, p=P_DEFAULT,
+                 rows=torch.zeros((2, 3, 6), dtype=torch.int64))

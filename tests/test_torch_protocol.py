@@ -232,9 +232,19 @@ def test_generator_keys_and_not_ported_options():
     g.manual_seed(42)
     y = tp.run(torch.from_numpy(a), torch.from_numpy(a), g)   # CPU tensors
     np.testing.assert_array_equal(y.numpy(), exact(a, a, P_MERSENNE31))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AGECMPCProtocol(s=2, t=2, z=2, m=8, adversaries=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        AGECMPCProtocol(s=2, t=2, z=2, m=8, placement=(0, 1))
+    # the adversary budget and pool placements (items 6 and 7) now work:
+    # a verified run and a placed protocol give the exact product
+    b = rng.integers(0, P_MERSENNE31, (M, M))
+    verified = AGECMPCProtocol(s=2, t=2, z=2, m=8, adversaries=1,
+                               field=Field(P_MERSENNE31))
+    np.testing.assert_array_equal(
+        verified.run(a, b, 3, device="cpu").numpy(),
+        exact(a, b, P_MERSENNE31))
+    from repro_torch.mpc import WorkerPool
+
+    placed = AGECMPCProtocol(s=2, t=2, z=2, m=8, pool=WorkerPool.homogeneous(
+        20), placement=tuple(range(19, 2, -1)))
+    assert placed.spec.effective_placement == tuple(range(19, 2, -1))
+    assert placed.plan is AGECMPCProtocol(s=2, t=2, z=2, m=8).plan
     with pytest.raises(NotImplementedError, match="item 10"):
         ProtocolStages.timed(tp.plan.stages("cpu"), None)

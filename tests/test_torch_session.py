@@ -160,16 +160,28 @@ def test_empty_and_misaligned_operands():
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MPCSpec(s=2, t=2, z=2, adversaries=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # items 6 and 7 are ported: budgets, pools, tuning, cost-model block
+    # search and the batched backend work and equal the reference; only
+    # the sharded and remote backends still refuse
+    from repro_torch.mpc import CostModel, WorkerPool
+    from repro_torch.mpc.backends import BatchedBackend
+
+    assert MPCSpec(s=2, t=2, z=2, adversaries=1).verified_threshold == 8
+    with pytest.raises(TypeError, match="WorkerPool"):
         MPCSpec(s=2, t=2, z=2, pool=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        MPCSpec.tune(17, 2, (4, 4, 4))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        connect(MPCSpec(s=2, t=2, z=2), device="cpu", cost=object())
-    for name, item in (("batched", "item 7"), ("sharded", "item 8"),
-                       ("remote", "item 9")):
+    pooled = MPCSpec(s=2, t=2, z=2, pool=WorkerPool.homogeneous(17))
+    assert pooled.effective_placement == tuple(range(17))
+    tuned = MPCSpec.tune(17, 2, (4, 4, 4))
+    want = JSpec.tune(17, 2, (4, 4, 4))
+    assert tuned.plan_key() == want.plan_key()
+    rng = np.random.default_rng(2)
+    a, b = rng.standard_normal((3, 8)), rng.standard_normal((8, 5))
+    for kw in ({"cost": CostModel()}, {"backend": "batched"}):
+        y = connect(MPCSpec(s=2, t=2, z=2), device="cpu", **kw).matmul(a, b)
+        np.testing.assert_allclose(y.numpy(), a @ b, atol=0.05)
+    assert isinstance(connect(MPCSpec(s=2, t=2, z=2), backend="batched",
+                              device="cpu").backend, BatchedBackend)
+    for name, item in (("sharded", "item 8"), ("remote", "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             connect(MPCSpec(s=2, t=2, z=2), backend=name, device="cpu")
     with pytest.raises(ValueError, match="mode"):
