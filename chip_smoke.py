@@ -23,6 +23,10 @@
    as two sources stacked; decode through a device index of survivor
    rows), each beside its bytes bound, and held on ragged shapes, odd C,
    rows that are not 16-byte aligned and the all-(p-1) corner at K = 19.
+   The remote path's own shapes are held and timed too: a worker's W = 1
+   product ``[1,1024,1024]^2`` (the tensor-core instance, read from the
+   instance counters), its G row ``[17,1] @ [1,2^20]`` and the dealer's
+   mask term ``[17,2] @ [2,2^20]``.
 4. Holds the flash-attention kernel against its plain version at the
    serve path's prefill shapes (llama3.2-1b: Hq 32, Hkv 8, D 64, bf16,
    T = 2048 and 512), a ragged T, T != S with ``q_offset``, non-causal and
@@ -65,6 +69,29 @@
    call.  Last, ``sess.fail`` takes (a)'s pool below N, the engine
    re-tunes through ``ElasticPool.retune`` -> ``autotune.retune_spec``, and
    the next call is still exact.
+6c. The remote phase: the remote backend (``backend="remote"``, the socket
+   transport) on the card at the main path's block, m = 2048 and N = 17,
+   on the lm_head's first 8192 columns (4 blocks, more than the driver's
+   window of 2).  (a) Thread mode, pipelined over the 4 blocks and then
+   barriered over 2 under ``torch.profiler``: exact, equal to the local
+   backend; per block each worker launches one W = 1
+   ``modmatmul_batched`` (tensor cores) and one K = 1 ``polyeval`` (its G
+   row) and the dealer 4 ``polyeval`` (encode twice, the mask term,
+   decode); prints wall time per call and, per block, the dealer's encode
+   and decode, its host time, the workers' compute and the wire time from
+   a ``PhaseRecorder``, the payload bytes, and the barriered call's
+   device busy share.  (b) Chaos, 2 blocks each: a worker dying after its
+   shares arrive (a phase-2 loss) is recovered exactly through the
+   engine's replan, one dying after its I point is absorbed by the
+   survivor mask.  (c) Process mode: 17 spawned processes on the card, 2
+   blocks, exact and equal to (a); prints the time from spawn to every
+   worker ready, and each process's launch counters, which it reports as
+   it exits, must show its 2 tensor-core products and 2 G rows on this
+   card.
+   (d) ``ProtocolStages.timed`` on the lm_head plan, ``sim.calibrate`` on
+   (a)'s per-device samples and ``sim.divergence.gate()`` at 1000 devices
+   (which must be ok), with no JAX installed.  Prints the phase's wall
+   time and a ``{"remote": ...}`` line.
 7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
    drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
    lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
@@ -99,6 +126,7 @@
 Any failed check raises and the script exits non-zero.
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -124,6 +152,9 @@ SERVE_PROMPTS = (2048, 128, 1024, 512, 2048, 512, 128, 1024)
 SERVE_MAX_NEW = (32, 8, 24, 16, 8, 32, 16, 24)
 SERVE_LANES, SERVE_BLOCK = 4, 16
 
+
+# the remote phase: the lm_head's first 8192 columns, 4 blocks at m = 2048
+REMOTE_M, REMOTE_COLS = 2048, 8192
 
 # the rwkv phase: rwkv6-1.6b, 24 layers, d 2048 = 32 heads of 64; two
 # Engine.generate calls of (batch, prompt tokens, max_new)
@@ -736,6 +767,244 @@ def batched_phase(torch, np, dev, a, b, local_walls):
             "peak_gib": peak / 2**30}
 
 
+def remote_phase(torch, dev, a, b, local):
+    """The remote backend on the card (phase 6c): the lm_head's first
+    ``REMOTE_COLS`` columns at m = 2048 (N = 17, the main path's block)
+    over the socket transport.  (a) thread mode, pipelined then
+    barriered; (b) a phase-2 death and a phase-3 death; (c) 17 spawned
+    processes on the one card; (d) timed stages, calibration from (a)'s
+    samples and the divergence gate.  Each call exact; (a)'s launches read
+    with the counters zeroed just before it.  Returns the ``kernels``
+    line's numbers."""
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.modmatmul import modmatmul_plain
+    from repro_torch.mpc import MPCSpec, WorkerPool, connect
+    from repro_torch.mpc.protocol import AGECMPCProtocol
+    from repro_torch.mpc.workers import WorkerClass
+    from repro_torch.sim import PhaseRecorder, calibrate
+    from repro_torch.sim.divergence import gate
+
+    t_phase = time.perf_counter()
+    m, blk = REMOTE_M, REMOTE_M // 2
+    spec = MPCSpec(s=2, t=2, z=2, m=m)
+    n = spec.n_workers
+    p = spec.field.p
+    w = b[:, :REMOTE_COLS].contiguous()
+    want = modmatmul_plain(a, w, p=p)
+    blocks = REMOTE_COLS // m
+    # payload bytes of one block (frame headers aside): shares down, the G
+    # row up, the I point down and its echo up, for each of the N workers
+    wire = n * 8 * (2 * blk * blk + n * blk * blk + 2 * blk * blk)
+    y_loc = local.matmul(a, w, encoded=True, m=m)
+    require(torch.equal(y_loc, want), "remote: local backend != exact")
+    print(f"remote backend: [1,{D_MODEL}] x [{D_MODEL},{REMOTE_COLS}] at m={m} "
+          f"(N={n}, {blocks} blocks), p = {p}, encoded; {wire / 1e9:.3f} GB "
+          f"of payload on the wire per block ({n} workers x (shares "
+          f"{16 * blk * blk / 1e6:.1f} MB, G row {8 * n * blk * blk / 1e6:.1f} "
+          f"MB, I point {8 * blk * blk / 1e6:.1f} MB each way))", flush=True)
+
+    rec = PhaseRecorder()
+    sess = connect(spec, backend="remote", recorder=rec)
+    require(sess.device == dev and sess.backend.device == dev,
+            f"remote session on {sess.device}")
+
+    def spawn(what, sess):
+        """Bring the session's dealer up (its workers spawned, each with
+        its plan) before any call is timed; returns the seconds it took."""
+        t0 = time.perf_counter()
+        dealer = sess.backend._dealer(sess.backend.engine.serving_proto(
+            AGECMPCProtocol.from_spec(spec)))
+        ready = time.perf_counter() - t0
+        print(f"  {what}: {len(dealer.links)} workers, {ready:.2f} s from "
+              f"spawn to every worker ready", flush=True)
+        return dealer, ready
+
+    def call(what, sess, cols, nblocks, counted=True, prof=None):
+        """One ``matmul`` of ``h @ W[:, :cols]``, exact against the plain
+        product and the local backend; launches counted from zero.  Under
+        ``prof`` (a ``torch.profiler.profile``) the call is traced too."""
+        be = sess.backend
+        blocks0, host0, n0 = be.stats["blocks"], be.dealer_us, len(rec)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with prof if prof is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            y = sess.matmul(a, w[:, :cols], encoded=True, m=m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts, inst = launch_counts(), instance_counts()["modmatmul_batched"]
+        done = be.stats["blocks"] - blocks0
+        require(y.shape == (1, cols) and y.is_cuda
+                and torch.equal(y, want[:, :cols])
+                and torch.equal(y, y_loc[:, :cols]),
+                f"{what}: != exact (A @ B) mod p and the local backend")
+        host = (be.dealer_us - host0) / 1e3 / max(done, 1)
+        new = rec.samples[n0:]
+        per = {ph: [x.us / 1e3 for x in new if x.phase == ph]
+               for ph in ("encode", "decode", "compute", "exchange")}
+
+        def stat(ph):
+            v = per[ph]
+            return (f"mean {sum(v) / len(v):.1f} max {max(v):.1f}" if v
+                    else "none")
+
+        print(f"  {what}: exact, equal to the local backend; "
+              f"{wall * 1e3:.1f} ms wall, {done} blocks, "
+              f"{wall * 1e3 / max(done, 1):.1f} ms per block; dealer host "
+              f"{host:.1f} ms per block; launches {counts}", flush=True)
+        if new:
+            print(f"    per block (ms, recorder): dealer encode "
+                  f"{stat('encode')}, decode {stat('decode')}; worker "
+                  f"compute (H2D, products, D2H) {stat('compute')}; wire per "
+                  f"worker {stat('exchange')}; stats {be.stats}", flush=True)
+        if counted:
+            require(done == nblocks, f"{what}: {done} blocks != {nblocks}")
+            require(counts["modmatmul_batched"] == n * nblocks
+                    and inst["tensor_core"] == n * nblocks
+                    and counts["polyeval"] == (n + 4) * nblocks
+                    and counts["modmatmul"] == 0,
+                    f"{what}: launches {counts}, instances {inst}")
+        return {"y": y, "wall": wall, "counts": counts, "host": host,
+                "blocks": done}
+
+    from torch.profiler import ProfilerActivity, profile
+
+    _, thread_ready = spawn("(a) thread mode", sess)
+    # pipelined over all the blocks (more than the window of 2); barriered
+    # over 2, traced: the window plays no part there, and the trace splits
+    # a counted call's device time between copies and kernels
+    sess.backend.pipelined = True
+    pipe = call("(a) thread mode, pipelined", sess, REMOTE_COLS, blocks)
+    sess.backend.pipelined = False
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    barr = call("(a) thread mode, barriered, under torch.profiler", sess,
+                2 * m, 2, prof=prof)
+    a_samples = list(rec.samples)
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    copies = sum(e.self_device_time_total for e in rows
+                 if "memcpy" in e.key.lower()) / 1e3
+    prof_wall = barr["wall"] * 1e3
+    print(f"  (a) the barriered call's trace: {prof_wall:.1f} ms wall, "
+          f"device busy {busy:.1f} ms ({100 * busy / prof_wall:.1f} %; "
+          f"idle {100 - 100 * busy / prof_wall:.1f} %): host<->card copies "
+          f"{copies:.1f} ms, kernels {busy - copies:.2f} ms in "
+          f"{sum(e.count for e in rows)} device events", flush=True)
+    sess.backend.close()
+
+    print("  (b) chaos in thread mode, 2 blocks each:", flush=True)
+    chaos = {}
+    for point, slot in (("shares", 3), ("ipoint", 5)):
+        sess_b = connect(spec, backend="remote")
+        sess_b.backend.chaos(AGECMPCProtocol.from_spec(spec), slot,
+                             die_block=0, die_after=point)
+        wall = call(f"(b) worker {slot} dies after {point!r}", sess_b,
+                    2 * m, 2, counted=False)["wall"]
+        st, eng = dict(sess_b.backend.stats), sess_b.backend.engine.stats
+        print(f"    replans {eng['replans']}, retunes {eng['retunes']}, "
+              f"phase_losses {st['phase_losses']}, redispatches "
+              f"{st['redispatches']}, phase3_absorbed "
+              f"{st['phase3_absorbed']}", flush=True)
+        if point == "shares":
+            require(st["phase_losses"] >= 1 and st["redispatches"] >= 1
+                    and eng["replans"] >= 1,
+                    f"(b) phase-2 death not recovered by a replan: {st}")
+        else:
+            require(st["phase3_absorbed"] >= 1 and st["phase_losses"] == 0,
+                    f"(b) phase-3 death not absorbed: {st}")
+        chaos[point] = {"wall_ms": wall * 1e3, "stats": st,
+                        "replans": eng["replans"], "retunes": eng["retunes"]}
+        sess_b.backend.close()
+
+    sess_c = connect(spec, backend="remote", spawn="process")
+    dealer, ready = spawn("(c) process mode, one card", sess_c)
+    proc_run = call("(c) process mode", sess_c, 2 * m, 2, counted=False)
+    require(torch.equal(proc_run["y"], pipe["y"][:, :2 * m]),
+            "(c) process mode != (a)'s Y")
+    require(proc_run["counts"]["polyeval"] == 4 * 2
+            and proc_run["counts"]["modmatmul_batched"] == 0,
+            f"(c) the dealer's launches {proc_run['counts']}")
+    procs = [ln._process for ln in dealer.links.values()]
+    sess_c.backend.close()
+    require(len(procs) == n and not any(pr.is_alive() for pr in procs),
+            "(c) worker processes left running")
+    # the workers' kernels ran in their own processes: each reports its
+    # counters as it exits (outside the wire), one W = 1 tensor-core
+    # product and one G-row polyeval per block, on this card
+    reports = dealer.worker_reports()
+    require([r["slot"] for r in reports] == list(range(n))
+            and all(r["device"] == str(dev)
+                    and r["launches"]["modmatmul_batched"] == 2
+                    and r["instances"]["modmatmul_batched"]["tensor_core"] == 2
+                    and r["launches"]["polyeval"] == 2
+                    for r in reports),
+            f"(c) worker processes' launches: {reports}")
+    print(f"  (c) each of the {len(reports)} worker processes reports, on "
+          f"{reports[0]['device']}, 2 tensor_core modmatmul_batched and 2 "
+          f"polyeval launches", flush=True)
+    wall_c = proc_run["wall"]
+
+    print("  (d) simulator and timing on the card:", flush=True)
+    plan = spec.plan()
+    trec = PhaseRecorder()
+    stages = plan.stages(dev).timed(trec, plan=plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    at, bt = a.new_zeros((m, m)), w[:, :m]
+    at[:, :1] = a.T
+    for _ in range(3):
+        f_a, f_b = stages.encode(at, bt, gen)
+        h = stages.worker_compute(f_a, f_b)
+        i_pts = stages.exchange(h, gen)
+        idx, rows = plan.survivor_tables(tuple(range(6)), dev)
+        y = stages.decode(i_pts, idx, rows)
+    # Aᵀ's first column is h: Y's first row is h @ W[:, :m], the rest 0
+    require(torch.equal(y[:1], want[:, :m]) and not bool(y[1:].any()),
+            "(d) timed stages != exact")
+    require(len(trec) == 12 and all(x.device == -1 for x in trec.samples),
+            f"(d) timed stages recorded {len(trec)} samples")
+    timed = {x.phase: x.us for x in trec.samples[-4:]}
+    print(f"    ProtocolStages.timed on the lm_head plan (third call, us): "
+          f"{ {k: round(v, 1) for k, v in timed.items()} }", flush=True)
+    roster = WorkerPool.homogeneous(n, WorkerClass(spec.scheme))
+    cal = calibrate(a_samples, roster)
+    mult = cal.multipliers.get(spec.scheme)
+    require(mult is not None and all(x > 0 for x in mult),
+            f"(d) calibration fitted {cal.multipliers}")
+    print(f"    sim.calibrate on (a)'s {cal.samples_used} samples (roster: "
+          f"{n} devices of class {spec.scheme!r}, as a pool-free spec labels "
+          f"them): (xi, sigma, zeta) multipliers "
+          f"{tuple(round(x, 4) for x in mult)}", flush=True)
+    rep = gate()
+    require(rep.ok, f"(d) divergence gate failed: {rep.describe()}")
+    print(f"    sim.divergence.gate() at 1000 devices: ok, "
+          + ", ".join(f"{e.label} ratio {e.ratio:.3f}" for e in rep.entries),
+          flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"remote phase: {phase_s:.1f} s wall", flush=True)
+    out = {
+        "launches": pipe["counts"], "blocks": pipe["blocks"],
+        "per_block": {k: v / pipe["blocks"]
+                      for k, v in pipe["counts"].items()},
+        "wall_ms": {"pipelined": pipe["wall"] * 1e3,
+                    "barriered_two_blocks_profiled": prof_wall,
+                    "process_two_blocks": wall_c * 1e3},
+        "profiled_device_ms": {"busy": busy, "copies": copies},
+        "thread_ready_s": thread_ready,
+        "dealer_host_ms_per_block": {"pipelined": pipe["host"],
+                                     "barriered": barr["host"]},
+        "wire_bytes_per_block": wire, "process_ready_s": ready,
+        "chaos": chaos, "multipliers": list(mult), "timed_us": timed,
+        "phase_s": phase_s}
+    print(json.dumps({"remote": out}), flush=True)
+    return out
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -1132,8 +1401,10 @@ def main(argv=None):
                rand(p, 17, 19), (i_pts, rand(p, 2, col)), None, (17, 19, col))
         yield (f"decode [4,6] @ rows {alive.tolist()} of [17,{col}]",
                rand(p, 4, 6), i_pts, alive, (4, 6, col))
-    require(mm_mod.choose_instance(17, blk, blk, blk) == "tensor_core",
-            "the main path's worker product does not take the tensor cores")
+    require(mm_mod.choose_instance(17, blk, blk, blk) == "tensor_core"
+            and mm_mod.choose_instance(1, blk, blk, blk) == "tensor_core",
+            "the main path's or a remote worker's product does not take the "
+            "tensor cores")
     rec = {}
     for p in (P_DEFAULT, P_MERSENNE31):
         print(f"kernel checks, p = {p} (acc_window {acc_window(p)}):", flush=True)
@@ -1210,6 +1481,26 @@ def main(argv=None):
                 want=pow(p - 1, 2, p) * 19 % p,
                 rows=torch.arange(3, 22, device=dev))
         del shifted
+        # the remote path's own shapes (phase 6c): each worker's W = 1
+        # product and its G row (K = 1), and the dealer's mask term (K = z,
+        # one tensor); the encode and decode are pe_main's
+        remote = {}
+        inst0 = instance_counts()["modmatmul_batched"]
+        remote["worker product"] = compare(
+            f"remote worker product [1,{blk},{blk}]^2 (tensor_core, W = 1)",
+            *mmb, (rand(p, 1, blk, blk), rand(p, 1, blk, blk)), p)
+        served = {k: v - inst0[k]
+                  for k, v in instance_counts()["modmatmul_batched"].items()}
+        require(served["tensor_core"] > 0
+                and sum(served.values()) == served["tensor_core"],
+                f"remote worker product: instances {served}")
+        remote["worker G row"] = compare(
+            f"remote worker G row [17,1] @ [1,{col}] (K = 1)", *pev,
+            (rand(p, 17, 1), rand(p, 1, col)), p, iters=10)
+        remote["dealer mask term"] = compare(
+            f"remote dealer mask term [17,2] @ [2,{col}] (K = z)", *pev,
+            (rand(p, 17, 2), rand(p, 2, col)), p, iters=10)
+        rec[("remote", p)] = remote
         del ab
         torch.cuda.empty_cache()
 
@@ -1512,6 +1803,10 @@ def main(argv=None):
     # ------------------- the batched engine and Byzantine decode (phase 6b)
     rec.update(skinny_checks(torch, dev, gen, sms))
     batched_rec = batched_phase(torch, np, dev, a, b, walls)
+    torch.cuda.empty_cache()
+
+    # -------------------- the remote backend over the transport (phase 6c)
+    remote_rec = remote_phase(torch, dev, a, b, sess)
     del a, b
     torch.cuda.empty_cache()
 
@@ -1570,6 +1865,23 @@ def main(argv=None):
             "path": ("verified lm_head (b), 8-lane waves"
                      if name == "modmatmul" else "main path"),
         })
+        if name in ("modmatmul_batched", "polyeval"):
+            kernels[-1]["remote"] = {
+                "path": "remote backend, thread mode, pipelined",
+                "launches": remote_rec["launches"][name],
+                "blocks": remote_rec["blocks"],
+                "launches_per_block": remote_rec["per_block"][name]}
+            shapes = ({"worker product": mm_work(1, blk, blk, blk, p)}
+                      if name == "modmatmul_batched" else
+                      {"worker G row": pe_work(17, 1, col, p),
+                       "dealer mask term": pe_work(17, 2, col, p)})
+            kernels[-1]["remote"]["shapes"] = {
+                what: {"ms": rec[("remote", p)][what]["ms"],
+                       "plain_ms": rec[("remote", p)][what]["plain_ms"],
+                       "max_abs_err": rec[("remote", p)][what]["max_abs_err"],
+                       "bound_ms": bound(*work)[0],
+                       "bound_by": bound(*work)[1]}
+                for what, work in shapes.items()}
         if name == "modmatmul_batched":
             r31 = rec[(name, P_MERSENNE31)]
             kernels[-1].update({

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -134,6 +135,15 @@ def fold_args(p: int) -> tuple:
             f"most 4 folds; p={p} has fold parameters {params}")
     b, c, n_folds = params
     return p, b, c, n_folds, min(acc_window(p), 2**30)
+
+
+def count(fn, instance: str = None) -> None:
+    """Add one launch to a wrapper's counter (and its instance's), under a
+    lock: the remote backend's worker threads launch concurrently."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        if instance is not None:
+            fn.instances[instance] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -307,8 +307,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, p: int,
 def _counted(fn, a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     instance = choose_instance(a.shape[0], a.shape[1], a.shape[2], b.shape[2])
     out = _launch(a, b, p=p, instance=instance)
-    fn.launches += 1
-    fn.instances[instance] += 1
+    _build.count(fn, instance)
     return out
 
 

@@ -189,7 +189,7 @@ def polyeval(vand: torch.Tensor, terms: Terms, *, p: int,
         err = _lib()(vand.data_ptr(), *src_args, out.data_ptr(), n, k, c, b,
                      *args, stream)
     _build.check(err, "polyeval")
-    polyeval.launches += 1
+    _build.count(polyeval)
     return out
 
 

@@ -30,9 +30,10 @@ masks cancel.
 Heterogeneous worker pools and placements (:mod:`.workers`),
 ``MPCSpec.tune`` and cost-model block search (:mod:`.autotune`), and
 adversary budgets with MAC-verified decode (:mod:`.byzantine`) work as in
-the reference, on the ``local`` and ``batched`` backends.  The ``sharded``
-and ``remote`` backends are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items.
+the reference, on the ``local`` and ``batched`` backends; the ``remote``
+backend (the socket transport) serves plain specs, as in the reference.
+The ``sharded`` backend is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -684,8 +685,11 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
     "reference"``, optional ``injector``), ``"batched"`` (the
     :class:`~repro_torch.mpc.engine.MPCEngine`: optional ``spares``,
     ``max_batch``, ``wave_scalars``, ``inflight``, ``injector``,
-    ``recorder``) or a constructed backend; ``"sharded"`` and ``"remote"``
-    raise ``NotImplementedError`` naming their ROADMAP items.  Session
+    ``recorder``), ``"remote"`` (workers behind the framed socket
+    transport: optional ``spawn="thread"|"process"``, ``pipelined``,
+    ``recorder``, see :class:`~repro_torch.mpc.backends.RemoteBackend`) or
+    a constructed backend; ``"sharded"`` raises ``NotImplementedError``
+    naming its ROADMAP item.  Session
     options: ``key`` (int seed or ``torch.Generator``, the base of every
     per-call key), ``tile_budget`` (the shape adapter's dispatch cap) and
     ``cost`` (a :class:`~repro_torch.mpc.autotune.CostModel`: block sides
@@ -701,9 +705,18 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
     key = opts.pop("key", None)
     tile_budget = opts.pop("tile_budget", DEFAULT_TILE_BUDGET)
     cost = opts.pop("cost", None)
-    if backend == "batched":
+    if backend in ("sharded", "remote") and (
+            spec.adversaries or opts.get("injector") is not None):
+        # neither the mesh runner nor the wire transport carries the MAC
+        # tags verification needs; serving unverified shares under a
+        # Byzantine spec would defeat the budget: fail at connect time
+        raise ValueError(
+            f"the {backend} backend does not verify shares: use the local "
+            "or batched backend for specs with adversaries > 0 / an "
+            "injector")
+    if backend in ("batched", "remote"):
         opts.setdefault("device", dev)       # the engine runs where we do
-        if cost is not None:
+        if cost is not None and backend == "batched":
             # the engine re-tunes under the objective it serves with
             opts.setdefault("cost", cost)
     be = resolve_backend(backend, **opts)

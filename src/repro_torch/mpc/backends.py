@@ -13,9 +13,12 @@ quorum, infeasible pool, adversary budget exhausted) becomes a
 * :class:`BatchedBackend`: the whole op list submitted to an
   :class:`~repro_torch.mpc.engine.MPCEngine` and served in ONE flush;
   session attrition routes into the engine's elastic pools.
+* :class:`RemoteBackend`: the N workers behind the framed socket
+  transport (:mod:`repro_torch.transport`), loopback threads or spawned
+  processes, computing on the session's device.
 
-The reference's ``sharded`` and ``remote`` backends raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The reference's ``sharded`` backend raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Sequence, Union
 
 from .api import BlockFailure, BlockOp
 from .errors import QuorumError
+from .field import resolve_device
 from .protocol import MODES
 
 BlockResult = Union[Any, BlockFailure]  # a field-domain tensor, or a failure
@@ -236,11 +240,229 @@ class BatchedBackend(MPCBackend):
         return outs
 
 
-BACKENDS = {"local": LocalBackend, "batched": BatchedBackend}
+class RemoteBackend(MPCBackend):
+    """Out-of-process execution over the worker transport.
+
+    Each serving group's N workers run behind a
+    :class:`~repro_torch.transport.dealer.Dealer`: loopback worker threads
+    by default (``spawn="thread"``, sharing the process-wide plan cache),
+    spawned processes with ``spawn="process"``.  Blocks are served by the
+    pipelined protocol driver (:func:`repro_torch.transport.driver
+    .run_blocks`; ``pipelined=False`` keeps the phase-barriered baseline).
+    Dealer and workers compute on ``device`` (the session's): the workers
+    run the same stages, on plan tables they rebuild deterministically, so
+    decode is integer-equal to the local backend.
+
+    Failure semantics: a worker death before its phase-2 G row lands is a
+    phase-2 loss: the driver reports the dead slots, the backend routes
+    them through ``engine.fail`` (→ ``ElasticPool.fail_devices`` for pool
+    specs) and re-dispatches the lost blocks under the engine's
+    retune-before-replan escalation, exactly like in-process serving.
+    ``spares=0`` (the default here) makes ANY death escalate
+    deterministically: the transport cannot serve the in-process
+    spare-quorum path.  A death after the G row is a phase-3 loss the
+    survivor mask absorbs.
+
+    ``recorder`` (e.g. :class:`repro_torch.sim.trace.PhaseRecorder`)
+    receives measured per-device ``compute``/``exchange`` wire samples,
+    feeding ``sim.calibrate`` / ``CostModel.from_bench`` with real ζ time.
+    ``dealer_us`` sums the driver's ``dealer_us`` (the dealer's time
+    outside its wait for replies) over every flush.
+    """
+
+    name = "remote"
+    handles_attrition = True
+
+    #: phase-2 loss → fail → retune/replan → re-dispatch rounds before a
+    #: block gives up (escalation chains are short; 8 is generous)
+    MAX_ROUNDS = 8
+
+    def __init__(self, *, spawn: str = "thread", spares: int = 0,
+                 pipelined: bool = True, window: int = None,
+                 deadline_s: float = None, retries: int = None,
+                 backoff: float = None, delay_s: float = 0.0, cost=None,
+                 recorder=None, engine=None, device=None):
+        from .engine import MPCEngine
+
+        if engine is None:
+            engine = MPCEngine(spares=spares, cost=cost, recorder=recorder,
+                               device=device)
+        self.engine = engine
+        self.device = engine.device if device is None else resolve_device(
+            device)
+        self.spawn = spawn
+        self.pipelined = pipelined
+        self.delay_s = float(delay_s)  # simulated link RTT (benchmarks)
+        self.recorder = recorder
+        self._driver_kw = {
+            k: v for k, v in (("window", window), ("deadline_s", deadline_s),
+                              ("retries", retries), ("backoff", backoff))
+            if v is not None}
+        self._dealers: Dict[tuple, object] = {}
+        self._dead: frozenset = frozenset()
+        self.stats = {"blocks": 0, "phase_losses": 0, "redispatches": 0,
+                      "masks_dropped": 0, "retries": 0, "evictions": 0,
+                      "phase3_absorbed": 0}
+        self.dealer_us = 0.0
+
+    # -------------------------------------------------------------- dealers
+    def _dealer(self, serving):
+        from ..transport.dealer import Dealer
+
+        key = serving.group_key
+        d = self._dealers.get(key)
+        if d is None:
+            d = self._dealers[key] = Dealer(serving, spawn=self.spawn,
+                                            delay_s=self.delay_s,
+                                            device=self.device)
+        return d
+
+    def _drop_dealer(self, key) -> None:
+        d = self._dealers.pop(key, None)
+        if d is not None:
+            d.close()
+
+    def close(self) -> None:
+        """Stop every spawned worker and close the links."""
+        for d in list(self._dealers.values()):
+            d.close()
+        self._dealers.clear()
+
+    def chaos(self, proto, device: int, **doc) -> None:
+        """Script a fault into one live worker of ``proto``'s serving
+        group (test hook; see :class:`repro_torch.transport.worker._Chaos`
+        and ``byzantine.FaultInjector.to_json`` for the shared schedule
+        format)."""
+        serving = self.engine.serving_proto(proto)
+        self._dealer(serving).chaos(int(device), **doc)
+
+    # ------------------------------------------------------------ attrition
+    def fail(self, dead: frozenset) -> None:
+        self._dead = frozenset(dead)
+
+    def _report_attrition(self, proto) -> None:
+        if not self._dead:
+            return
+        pool = self.engine.pool(spec=proto.spec)
+        if pool.device_map is not None:  # pool spec: ids are device ids
+            pool.fail_devices(sorted(self._dead))
+            return
+        ids = [w for w in sorted(self._dead) if w < pool.pool_size]
+        if ids:
+            pool.fail(ids)
+
+    def drain_spec(self, spec, shape, *, batch: int = 1, cost=None,
+                   tile_budget=None):
+        if spec.m is None or not self._dead:
+            return None
+        from .protocol import AGECMPCProtocol
+
+        self._report_attrition(AGECMPCProtocol.from_spec(spec))
+        return self.engine.drain_spec(spec, shape, batch=batch, cost=cost,
+                                      tile_budget=tile_budget)
+
+    # --------------------------------------------------------------- blocks
+    def run_blocks(self, ops: Sequence[BlockOp]) -> List[BlockResult]:
+        import dataclasses
+
+        import numpy as np
+
+        from ..transport import driver as _driver
+        from ..transport.dealer import WorkerDown, slot_devices
+
+        if not ops:
+            return []
+        if self._dead:  # once per distinct serving group, not per block
+            seen = set()
+            for op in ops:
+                if op.proto.group_key not in seen:
+                    seen.add(op.proto.group_key)
+                    self._report_attrition(op.proto)
+        results: List[BlockResult] = [None] * len(ops)
+        pending = list(enumerate(ops))
+        for _ in range(self.MAX_ROUNDS):
+            if not pending:
+                break
+            groups: Dict[tuple, list] = {}
+            order: List[tuple] = []
+            for pos, op in pending:
+                try:
+                    serving = self.engine.serving_proto(op.proto)
+                except RuntimeError as e:  # infeasible pool: fail alone
+                    results[pos] = BlockFailure(str(e))
+                    continue
+                key = serving.group_key
+                if key not in groups:
+                    groups[key] = [serving]
+                    order.append(key)
+                groups[key].append((pos, op))
+            pending = []
+            for key in order:
+                serving, *items = groups[key]
+                n = serving.n_workers
+                pool = self.engine._pools.get(key)
+                pool_mask = (pool.alive[:n].copy() if pool is not None
+                             else np.ones(n, bool))
+                driver_ops = []
+                for pos, op in items:
+                    if op.proto.group_key != key:  # escalated away
+                        self._drop_dealer(op.proto.group_key)
+                    surv = op.survivors
+                    if surv is not None and op.proto.group_key != key:
+                        # sized for the pre-replan worker set: invalid now
+                        surv = None
+                        self.stats["masks_dropped"] += 1
+                    mask = pool_mask.copy()
+                    if surv is not None:
+                        # analysis: allow(host-sync): survivor masks are host data
+                        mask &= np.asarray(surv, bool)
+                    driver_ops.append(dataclasses.replace(
+                        op, proto=serving,
+                        survivors=None if mask.all() else mask))
+                try:
+                    dealer = self._dealer(serving)
+                except WorkerDown as e:  # group failed to come up
+                    self._drop_dealer(key)
+                    for pos, op in items:
+                        results[pos] = BlockFailure(str(e))
+                    continue
+                outcomes, dstats = _driver.run_blocks(
+                    dealer, driver_ops, pipelined=self.pipelined,
+                    recorder=self.recorder, **self._driver_kw)
+                for k in ("retries", "evictions", "phase3_absorbed"):
+                    self.stats[k] += dstats[k]
+                self.dealer_us += dstats["dealer_us"]
+                lost_devices: set = set()
+                for (pos, op), out in zip(items, outcomes, strict=True):
+                    if isinstance(out, _driver.PhaseLoss):
+                        lost_devices.update(
+                            slot_devices(serving.spec, out.slots))
+                        self.stats["phase_losses"] += 1
+                        pending.append((pos, op))
+                    elif isinstance(out, _driver.BlockError):
+                        results[pos] = BlockFailure(out.reason)
+                    else:
+                        results[pos] = out
+                        self.stats["blocks"] += 1
+                if lost_devices:
+                    # the in-process escalation path, verbatim: fail →
+                    # retune (m fixed) → replan; next round re-dispatches
+                    self.engine.fail(sorted(lost_devices),
+                                     spec=serving.spec)
+                    self._drop_dealer(key)
+                    self.stats["redispatches"] += 1
+        for pos, op in pending:
+            results[pos] = BlockFailure(
+                f"remote re-dispatch did not converge in "
+                f"{self.MAX_ROUNDS} rounds")
+        return results
+
+
+BACKENDS = {"local": LocalBackend, "batched": BatchedBackend,
+            "remote": RemoteBackend}
 
 _NOT_PORTED = {
     "sharded": "the sharded runner slice (ROADMAP queue 1, item 8)",
-    "remote": "the transport slice (ROADMAP queue 1, item 9)",
 }
 
 

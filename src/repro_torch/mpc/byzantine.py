@@ -372,3 +372,19 @@ class FaultInjector:
     def load(cls, path: str) -> "FaultInjector":
         with open(path) as f:
             return cls.from_json(json.load(f))
+
+    def to_fleet_events(self, *, round_us: float = 1.0) -> List:
+        """The scripted schedule as :class:`repro_torch.sim.trace.FleetEvent`
+        corruption events (``at_us = round · round_us``): the fleet-sim
+        replay view of the shared schedule file.  Rate-driven corruption
+        has no scripted times and is not projected."""
+        from ..sim.trace import FleetEvent
+
+        events = []
+        if self.schedule is not None:
+            for rnd in sorted(int(r) for r in self.schedule):
+                for slot, _mode in self.schedule[rnd]:
+                    events.append(FleetEvent(at_us=float(rnd) * round_us,
+                                             device=int(slot),
+                                             kind="corrupt"))
+        return events

@@ -108,6 +108,8 @@ class ProtocolStages:
     secrets and masks ``[B, ...]``, ``[B, N, m/t, m/t]``): the batched
     stages of :meth:`ProtocolPlan.batched` are built from them.
 
+    ``device`` is where the stages run; :meth:`timed` fences on it.
+
     On a CUDA device every product is a kernel launch: ``worker_compute``
     goes to ``modmatmul_batched``, the skinny-K table products of
     ``encode``/``exchange``/``decode`` to ``polyeval`` (four launches per
@@ -126,11 +128,65 @@ class ProtocolStages:
     fused: Callable
     tags: Callable
 
+    device: Optional[torch.device] = None
+
     def timed(self, recorder, *, plan: "ProtocolPlan" = None
               ) -> "ProtocolStages":
-        raise NotImplementedError(
-            "ProtocolStages.timed comes with the fleet simulator slice "
-            "(ROADMAP queue 1, item 10)")
+        """A copy whose stages time each call and feed the sink.
+
+        ``recorder`` is duck-typed ``record(**kw)`` (e.g. :class:`repro_torch
+        .sim.trace.PhaseRecorder`); each call gets ``phase`` (the stage
+        name), wall ``us`` (fenced by ``torch.cuda.synchronize`` on the
+        card; the CPU returns finished tensors), ``scalars`` (the stage's
+        Cor. 8–10 work unit when ``plan`` is given, 0 otherwise),
+        ``device=-1`` and ``klass=<scheme>``: a stage runs all N logical
+        workers at once, so samples are fleet-aggregate, as in the
+        reference.
+
+        The fence stalls the host on every call: hand the *raw* stages to
+        ``plan.runner`` builders and the engine's waves.
+        """
+        import time as _time
+
+        counts = _stage_scalars(plan)
+        klass = "stage" if plan is None else plan.scheme
+        dev = self.device
+
+        def wrap(name: str, fn: Callable) -> Callable:
+            def timed_fn(*args, **kw):
+                t0 = _time.perf_counter()
+                out = fn(*args, **kw)
+                if dev is not None and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                recorder.record(
+                    device=-1, klass=klass, phase=name,
+                    scalars=counts.get(name, 0),
+                    us=(_time.perf_counter() - t0) * 1e6, lanes=1)
+                return out
+            return timed_fn
+
+        return ProtocolStages(device=dev, **{
+            name: wrap(name, getattr(self, name))
+            for name in ("encode", "worker_compute", "exchange", "decode",
+                         "front", "fused", "tags")})
+
+
+def _stage_scalars(plan: Optional["ProtocolPlan"]) -> Dict[str, int]:
+    """Per-stage scalar work units for one plan (the Cor. 8–10 counts the
+    calibration layer normalizes measured wall time by): encode touches
+    the 2N coded shares, worker_compute the N ξ-dominant block products,
+    exchange the ζ all-pairs traffic, decode the quorum's ``(m/t)²``
+    points; compositions sum their parts."""
+    if plan is None:
+        return {}
+    n, s, t, z, m = (plan.n_workers, plan.s, plan.t, plan.z, plan.m)
+    enc = 2 * n * (m * m) // (s * t)
+    wc = int(n * m ** 3 / (s * t * t))
+    exc = n * (n - 1) * m * m // (t * t)
+    dec = (t * t + z) * (m // t) ** 2
+    return {"encode": enc, "worker_compute": wc, "exchange": exc,
+            "decode": dec, "front": enc + wc + exc,
+            "fused": enc + wc + exc + dec, "tags": n * (m // t) ** 2}
 
 
 def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
@@ -172,10 +228,11 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
         return f_a, f_b
 
     def worker_compute(f_a, f_b):
-        lead = tuple(f_a.shape[:-3])
+        # any leading shape: all N workers, a wave's lanes, or one remote
+        # worker's [1, m/t, m/s] slice
         h = _kmm.modmatmul_batched(f_a.reshape(-1, mt, ms).contiguous(),
                                    f_b.reshape(-1, ms, mt).contiguous(), p=p)
-        return h.reshape(lead + (n, mt, mt))
+        return h.reshape(tuple(f_a.shape[:-1]) + (mt,))
 
     def exchange(h, gen, *, mask_sum=None):
         lead = tuple(h.shape[:-3])
@@ -211,7 +268,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
 
     return ProtocolStages(
         encode=encode, worker_compute=worker_compute, exchange=exchange,
-        decode=decode, front=front, fused=fused, tags=tags)
+        decode=decode, front=front, fused=fused, tags=tags, device=device)
 
 
 def _assemble(y_blocks: torch.Tensor, t: int, m: int) -> torch.Tensor:

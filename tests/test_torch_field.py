@@ -113,7 +113,11 @@ CONFIG_FILES = ["models/config.py"] + sorted(
 @pytest.mark.parametrize("name", ["core/__init__.py", "core/age.py",
                                   "core/worker_counts.py",
                                   "core/overheads.py", "mpc/errors.py",
-                                  "mpc/workers.py"]
+                                  "mpc/workers.py", "sim/__init__.py",
+                                  "sim/events.py", "sim/trace.py",
+                                  "sim/devices.py", "sim/replay.py",
+                                  "sim/calibrate.py", "sim/divergence.py",
+                                  "transport/framing.py"]
                          + CONFIG_FILES)
 def test_framework_free_copies_are_verbatim(name):
     orig = (ROOT / "src/repro" / name).read_bytes()

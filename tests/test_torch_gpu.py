@@ -613,3 +613,143 @@ def test_gpu_verified_sessions_equal_the_cpu(cuda, backend):
         np.testing.assert_array_equal(y.cpu().numpy(), want)
         runs[str(dev)] = (dict(sess.stats), set(sess._dead), list(inj.log))
     assert runs[str(cuda)] == runs["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_gpu_remote_threads_equal_local(cuda, pipelined):
+    """``backend="remote"`` in thread mode on the card (the default device)
+    at m = 128, two blocks: integer-equal to the local backend and the
+    exact product.  Per block, each of the 17 workers launches one W = 1
+    ``modmatmul_batched`` (tensor cores at m/t = 64) and one K = 1
+    ``polyeval`` (its G row); the dealer launches 4 ``polyeval`` (encode
+    twice, the mask term, decode)."""
+    from repro_torch.kernels.modmatmul import choose_instance
+
+    spec = MPCSpec(s=2, t=2, z=2)
+    n = spec.n_workers
+    rng = np.random.default_rng(91)
+    a = rng.integers(0, spec.field.p, (128, 256))
+    b = rng.integers(0, spec.field.p, (256, 128))
+    want = np.array((a.astype(object) @ b.astype(object)) % spec.field.p,
+                    np.int64)
+    rem = connect(spec, backend="remote", pipelined=pipelined)
+    assert rem.device.type == "cuda" and rem.backend.device == rem.device
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        y = rem.matmul(a, b, encoded=True, m=128)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        rem.backend.close()
+    assert y.is_cuda
+    np.testing.assert_array_equal(y.cpu().numpy(), want)
+    loc = connect(spec).matmul(a, b, encoded=True, m=128)
+    assert torch.equal(y, loc)
+    blocks = rem.backend.stats["blocks"]
+    assert blocks == 2
+    assert counts["modmatmul_batched"] == n * blocks
+    assert counts["polyeval"] == (n + 4) * blocks
+    assert choose_instance(1, 64, 64, 64) == "tensor_core"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_worker_g_row_equals_plain_and_numpy(cuda, p):
+    """A remote worker's G row on the card (the W = 1 product, then one
+    K = 1 ``polyeval`` of the slot's G-mix column against vec H) equals the
+    plain version and the reference's NumPy product."""
+    from repro_torch.mpc.protocol import AGECMPCProtocol
+    from repro_torch.transport.worker import g_row
+
+    proto = AGECMPCProtocol(s=2, t=2, z=2, m=256, field=Field(p))
+    plan = proto.plan
+    rng = np.random.default_rng(p % 1000)
+    f_a = rng.integers(0, p, (128, 128))
+    f_b = rng.integers(0, p, (128, 128))
+    h = np.array((f_a.astype(object) @ f_b.astype(object)) % p, np.int64)
+    for slot in (0, plan.n_workers - 1):
+        col = torch.from_numpy(plan.g_mix[slot].reshape(-1, 1).copy())
+        reset_launch_counts()
+        got = g_row(plan.stages(cuda), col.to(cuda),
+                    torch.from_numpy(f_a).to(cuda),
+                    torch.from_numpy(f_b).to(cuda), p)
+        torch.cuda.synchronize()
+        assert launch_counts()["polyeval"] == 1
+        plain = polyeval_plain(col.to(cuda),
+                               torch.from_numpy(h).to(cuda).reshape(1, -1),
+                               p=p)
+        assert torch.equal(got, plain)
+        want = (plan.g_mix[slot][:, None].astype(object)
+                * h.reshape(1, -1).astype(object)) % p
+        np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_worker_g_row_at_path_width(cuda, p):
+    """A remote worker's G row at the width the lm_head's blocks give it
+    (m = 2048: a ``[1024, 1024]`` share product, C = 2^20): the W = 1
+    product in the tensor-core instance, then one K = 1 ``polyeval``,
+    equal to the plain version and to the NumPy product (each factor is
+    below 2^31, so int64 holds it exactly)."""
+    from repro_torch.kernels import instance_counts
+    from repro_torch.mpc.protocol import AGECMPCProtocol
+    from repro_torch.transport.worker import g_row
+
+    proto = AGECMPCProtocol(s=2, t=2, z=2, m=2048, field=Field(p))
+    plan = proto.plan
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(p % 1000)
+    f_a = torch.randint(0, p, (1024, 1024), generator=gen, device=cuda)
+    f_b = torch.randint(0, p, (1024, 1024), generator=gen, device=cuda)
+    h = modmatmul_plain(f_a, f_b, p=p).reshape(1, -1)
+    slot = plan.n_workers - 1
+    col = torch.from_numpy(plan.g_mix[slot].reshape(-1, 1).copy()).to(cuda)
+    reset_launch_counts()
+    got = g_row(plan.stages(cuda), col, f_a, f_b, p)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["modmatmul_batched"] == counts["polyeval"] == 1
+    assert instance_counts()["modmatmul_batched"]["tensor_core"] == 1
+    assert got.shape == (plan.n_workers, 1024 * 1024)
+    assert torch.equal(got, polyeval_plain(col, h, p=p))
+    want = (plan.g_mix[slot][:, None].astype(np.int64)
+            * h.cpu().numpy()) % p
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_gpu_timed_stages_record_one_sample_per_call(cuda):
+    """``ProtocolStages.timed`` on the card: each call fenced and recorded
+    once, results equal to the untimed stages."""
+    from repro_torch.mpc.protocol import AGECMPCProtocol
+    from repro_torch.sim import PhaseRecorder
+
+    proto = AGECMPCProtocol(s=2, t=2, z=2, m=128)
+    p = proto.field.p
+    rec = PhaseRecorder()
+    raw = proto.plan.stages(cuda)
+    timed = raw.timed(rec, plan=proto.plan)
+    assert timed.device == raw.device and raw.device.type == "cuda"
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.integers(0, p, (128, 128))).to(cuda)
+    b = torch.from_numpy(rng.integers(0, p, (128, 128))).to(cuda)
+
+    def gen(seed):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(seed)
+        return g
+
+    f_a, f_b = timed.encode(a, b, gen(1))
+    h = timed.worker_compute(f_a, f_b)
+    i_pts = timed.exchange(h, gen(2))
+    idx, rows = proto.plan.survivor_tables(tuple(range(6)), cuda)
+    y = timed.decode(i_pts, idx, rows)
+    y2 = timed.fused(a, b, gen(3))
+    assert torch.equal(y, raw.fused(a, b, gen(3))) and torch.equal(y, y2)
+    assert [s.phase for s in rec.samples] == [
+        "encode", "worker_compute", "exchange", "decode", "fused"]
+    assert all(s.device == -1 and s.us > 0 and s.scalars > 0
+               for s in rec.samples)

@@ -246,5 +246,14 @@ def test_generator_keys_and_not_ported_options():
         20), placement=tuple(range(19, 2, -1)))
     assert placed.spec.effective_placement == tuple(range(19, 2, -1))
     assert placed.plan is AGECMPCProtocol(s=2, t=2, z=2, m=8).plan
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ProtocolStages.timed(tp.plan.stages("cpu"), None)
+    # ProtocolStages.timed (item 10) records each stage it is given
+    from repro_torch.sim import PhaseRecorder
+
+    rec = PhaseRecorder()
+    timed = ProtocolStages.timed(tp.plan.stages("cpu"), rec, plan=tp.plan)
+    np.testing.assert_array_equal(
+        timed.fused(torch.from_numpy(a), torch.from_numpy(b), g).numpy(),
+        exact(a, b, P_MERSENNE31))
+    assert [(r.phase, r.device, r.klass) for r in rec.samples] == [
+        ("fused", -1, "polydot")]
+    assert rec.samples[0].scalars > 0 and timed.device == torch.device("cpu")

@@ -162,7 +162,7 @@ def test_empty_and_misaligned_operands():
 def test_not_ported_options_raise():
     # items 6 and 7 are ported: budgets, pools, tuning, cost-model block
     # search and the batched backend work and equal the reference; only
-    # the sharded and remote backends still refuse
+    # the sharded backend still refuses
     from repro_torch.mpc import CostModel, WorkerPool
     from repro_torch.mpc.backends import BatchedBackend
 
@@ -181,9 +181,20 @@ def test_not_ported_options_raise():
         np.testing.assert_allclose(y.numpy(), a @ b, atol=0.05)
     assert isinstance(connect(MPCSpec(s=2, t=2, z=2), backend="batched",
                               device="cpu").backend, BatchedBackend)
-    for name, item in (("sharded", "item 8"), ("remote", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            connect(MPCSpec(s=2, t=2, z=2), backend=name, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        connect(MPCSpec(s=2, t=2, z=2), backend="sharded", device="cpu")
+    # the remote backend (item 9) serves on the session's device, and
+    # refuses a Byzantine budget as the reference does
+    remote = connect(MPCSpec(s=2, t=2, z=2), backend="remote", device="cpu")
+    try:
+        y = remote.matmul(a, b)
+        assert y.device == torch.device("cpu")
+        np.testing.assert_allclose(y.numpy(), a @ b, atol=0.05)
+    finally:
+        remote.backend.close()
+    with pytest.raises(ValueError, match="does not verify"):
+        connect(MPCSpec(s=2, t=2, z=2, adversaries=1), backend="remote",
+                device="cpu")
     with pytest.raises(ValueError, match="mode"):
         LocalBackend(mode="pallas")
     be = LocalBackend(mode="kernel")
