@@ -26,7 +26,12 @@
    The remote path's own shapes are held and timed too: a worker's W = 1
    product ``[1,1024,1024]^2`` (the tensor-core instance, read from the
    instance counters), its G row ``[17,1] @ [1,2^20]`` and the dealer's
-   mask term ``[17,2] @ [2,2^20]``.
+   mask term ``[17,2] @ [2,2^20]``; and the sharded path's: a shard's
+   W = 5 product ``[5,1024,1024]^2`` (tensor cores, from the counters), its
+   encode ``[5,6] @ [6,2^20]``, its exchange ``[20,15] @ ([5,2^20],
+   [10,2^20])``, and the ``ring_fold`` kernel on a shard's int32 and int64
+   ``[5,2^20]`` chunk, an odd C and the all-(p-1) corner (where an int32
+   sum overflows for Mersenne-31).
 4. Holds the flash-attention kernel against its plain version at the
    serve path's prefill shapes (llama3.2-1b: Hq 32, Hkv 8, D 64, bf16,
    T = 2048 and 512), a ragged T, T != S with ``q_offset``, non-causal and
@@ -92,6 +97,15 @@
    (a)'s per-device samples and ``sim.divergence.gate()`` at 1000 devices
    (which must be ok), with no JAX installed.  Prints the phase's wall
    time and a ``{"remote": ...}`` line.
+6d. The sharded phase: the full-width lm_head through
+   ``backend="sharded"`` on ``make_mesh((4,), ("model",), devices=
+   ["cuda:0"] * 4)`` (N_pad = 20, 5 workers a shard), both primes, the
+   int64 wire and the int32 wire with ``prg_masks``: ``Y`` equal, integer
+   for integer, to the local backend's; per block 13 ``polyeval`` (3 a
+   shard and the decode), 4 ``modmatmul_batched`` (all tensor cores) and,
+   on the int32 wire, 12 ``ring_fold``, read from the counters; ms per
+   call beside the local backend's; one float call equal to the float64
+   product of the fixed-point operands.
 7. Serves llama3.2-1b at full width and depth (16 layers, bf16 weights
    drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
    lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
@@ -120,7 +134,17 @@
    share; holds the kernel on layer 0's real operands; and checks in fp32
    that decoding one step from a prefill of T - 1 tokens gives the logits
    and greedy tokens of a prefill of T, which a zeroed WKV state fails.
-10. Prints one ``{"kernels": [...]}`` line and, last, the
+10. Serves olmoe-1b-7b at its published width and depth (16 layers, d
+   2048, 16 heads of 128, 64 experts top-8 of width 1024, vocab 50304,
+   bf16 weights drawn from ``--seed``, 6.9 B parameters): ``Engine`` with
+   paged decode, 4 requests of 512 to 2048 prompt tokens and 16 to 32 new
+   tokens, twice: the same tokens both times, 16 flash launches per
+   prefill, all in the wgmma instance at D = 128, no plain attention call.
+   Holds the kernel against its plain version on layer 0's real q, k, v
+   ``[1,2048,16,128]`` with the planted faults, timed beside
+   ``scaled_dot_product_attention``; prints prefill and decode times, peak
+   memory and the device busy share.
+11. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero.
@@ -155,6 +179,14 @@ SERVE_LANES, SERVE_BLOCK = 4, 16
 
 # the remote phase: the lm_head's first 8192 columns, 4 blocks at m = 2048
 REMOTE_M, REMOTE_COLS = 2048, 8192
+
+# the sharded phase: the main path's lm_head on a mesh of 4 shards of one card
+SHARDS = 4
+
+# the moe phase: olmoe-1b-7b, 4 requests on 4 lanes (KV blocks of SERVE_BLOCK)
+MOE_PROMPTS = (2048, 512, 1024, 2048)
+MOE_MAX_NEW = (32, 16, 24, 16)
+MOE_LANES = 4
 
 # the rwkv phase: rwkv6-1.6b, 24 layers, d 2048 = 32 heads of 64; two
 # Engine.generate calls of (batch, prompt tokens, max_new)
@@ -209,6 +241,13 @@ def mm_work(w, m, k, n, p):
 
 def pe_work(n, k, c, p):
     return 8 * (n * k + k * c + n * c), 2 * n * k * c * limbs(p) ** 2
+
+
+def fold_work(n, elem_bytes):
+    """(bytes, 32-bit integer ops) of one ``ring_fold`` of n elements: two
+    inputs read and the output written once; an add and a compare-subtract
+    per element."""
+    return 3 * n * elem_bytes, 2 * n
 
 
 def attn_work(q, k, causal, q_offset):
@@ -399,7 +438,8 @@ def rwkv_phase(torch, np, dev, seed, gen):
         peak = torch.cuda.max_memory_allocated()
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0, "flash_attention": 0,
-                           "rwkv6": cfg.n_layers * len(RWKV_CALLS)},
+                           "rwkv6": cfg.n_layers * len(RWKV_CALLS),
+                           "ring_fold": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain WKV calls on the card")
         print(f"  {what}: weights drawn in {draw_s:.2f} s; generate "
@@ -1005,6 +1045,262 @@ def remote_phase(torch, dev, a, b, local):
     return out
 
 
+def sharded_phase(torch, dev, gen, a, b, hold_float):
+    """The sharded backend on the card (phase 6d): the full-width lm_head
+    ``[1, 2048] x [2048, 128256]`` (63 blocks at m = 2048, N = 17) through
+    ``backend="sharded"`` on a mesh of ``SHARDS`` shards, all on this one
+    card (``devices=["cuda:0"] * 4``: N_pad = 20, 5 workers a shard).  For
+    both primes, the int64 wire without ``prg_masks`` and the int32 wire
+    with them: ``Y`` equal, integer for integer, to the local backend's
+    call on the same operands in this phase, and the launches read per
+    block from the counters, zeroed just before each counted call.  One
+    float call on the int32 wire is held to the float64 product of the
+    fixed-point operands.  Returns the ``kernels`` line's numbers."""
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.modmatmul import modmatmul_plain
+    from repro_torch.mpc import P_DEFAULT, P_MERSENNE31, Field, MPCSpec, connect
+    from repro_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh((SHARDS,), ("model",), devices=[dev] * SHARDS)
+    out = {"calls": {}}
+
+    def timed(sess, x, w, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = sess.matmul(x, w, **kw)
+        torch.cuda.synchronize()
+        return y, (time.perf_counter() - t0) * 1e3
+
+    for p in (P_DEFAULT, P_MERSENNE31):
+        spec = MPCSpec(s=2, t=2, z=2, field=Field(p))
+        if p == P_DEFAULT:
+            x, w = a, b
+        else:
+            x = torch.randint(0, p, (1, D_MODEL), generator=gen, device=dev)
+            w = torch.randint(0, p, (D_MODEL, VOCAB), generator=gen, device=dev)
+        n, d = spec.n_workers, SHARDS
+        n_pad = -(-n // d) * d
+        local = connect(spec)
+        y_local, _ = timed(local, x, w, encoded=True)
+        require(torch.equal(y_local, modmatmul_plain(x, w, p=p)),
+                f"sharded phase, p = {p}: local backend != exact")
+        local_ms = [timed(local, x, w, encoded=True)[1] for _ in range(2)]
+        print(f"sharded backend, p = {p}: [1,{D_MODEL}] x [{D_MODEL},{VOCAB}] "
+              f"on {d} shards of {dev} (N = {n}, N_pad = {n_pad}, "
+              f"{n_pad // d} workers a shard); local backend "
+              f"{[round(t, 1) for t in local_ms]} ms per call", flush=True)
+        for wire, prg in (("int64", False), ("int32", True)):
+            what = f"p={p} wire={wire} prg_masks={prg}"
+            sess = connect(spec, backend="sharded", mesh=mesh, wire_dtype=wire,
+                           prg_masks=prg)
+            require(sess.device == dev, f"{what}: session on {sess.device}")
+            reset_launch_counts()
+            y, first_ms = timed(sess, x, w, encoded=True)
+            counts = launch_counts()
+            inst = instance_counts()["modmatmul_batched"]
+            blocks = sess.stats["blocks"]
+            require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks")
+            require(torch.equal(y, y_local), f"{what}: Y != the local backend's")
+            per_block = {k: v / blocks for k, v in counts.items() if v}
+            want = {"polyeval": 3 * d + 1, "modmatmul_batched": d}
+            if wire == "int32":
+                want["ring_fold"] = d * (d - 1)
+            require(per_block == want, f"{what}: launches per block "
+                    f"{per_block}, want {want}")
+            require(inst == {"tensor_core": d * blocks, "skinny": 0,
+                             "cuda_core": 0},
+                    f"{what}: modmatmul_batched instances {inst}")
+            walls = [first_ms]
+            for _ in range(2):
+                y2, ms = timed(sess, x, w, encoded=True)
+                require(torch.equal(y2, y_local), f"{what}: a repeat call != local")
+                walls.append(ms)
+            print(f"  {what}: equal to the local backend's Y; "
+                  f"{[round(t, 1) for t in walls]} ms per call (the first "
+                  f"builds the shard tables), local "
+                  f"{[round(t, 1) for t in local_ms]} ms; launches per block "
+                  f"{per_block} over {blocks} blocks, modmatmul_batched "
+                  f"instances {inst}", flush=True)
+            out["calls"][what] = {"ms": walls, "local_ms": local_ms,
+                                  "launches": counts, "blocks": blocks,
+                                  "per_block": per_block}
+            if p == P_DEFAULT:
+                device_share(torch, f"one sharded call, {what}",
+                             lambda: sess.matmul(x, w, encoded=True),
+                             "ring_fold", top=10)
+            if p == P_DEFAULT and wire == "int32":
+                out["ring"] = out["calls"][what]
+                h = torch.randn((1, D_MODEL), generator=gen, device=dev,
+                                dtype=torch.float64)
+                hw = 0.02 * torch.randn((D_MODEL, VOCAB), generator=gen,
+                                        device=dev, dtype=torch.float64)
+                logits, ms = timed(sess, h, hw)
+                hold_float(f"sharded float call ({what}, {ms:.1f} ms)",
+                           logits, h, hw)
+                del h, hw, logits
+            del y, sess
+        del local, y_local
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharded phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def moe_phase(torch, np, dev, seed, hold_flash):
+    """Serve olmoe-1b-7b at its published width and depth on the card,
+    twice from one seed, with paged decode; holds the flash kernel at its
+    D = 128 prefill shape on layer 0's real q, k, v.  Returns the flash
+    kernel's record at that shape with its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve import Engine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b")
+    require((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.vocab, cfg.moe.n_experts, cfg.moe.top_k,
+             cfg.moe.d_ff_expert, cfg.dtype)
+            == ("moe", 16, 2048, 16, 16, 128, 50304, 64, 8, 1024, "bfloat16"),
+            f"olmoe-1b-7b config changed: {cfg}")
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in params.parameters())
+    nbytes = sum(w.numel() * w.element_size() for w in params.parameters())
+    print(f"moe: {cfg.name} at its published config ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of width {cfg.moe.d_ff_expert}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}); {n_params / 1e9:.3f} B parameters, "
+          f"{nbytes / 1e9:.3f} GB drawn from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    eng = Engine(cfg, params, block_size=SERVE_BLOCK)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab, (1, t)) for t in MOE_PROMPTS]
+    max_len = max(t + n - 1 for t, n in zip(MOE_PROMPTS, MOE_MAX_NEW,
+                                            strict=True))
+
+    def serve_once(what):
+        sched = eng.make_scheduler(lanes=MOE_LANES, max_len=max_len)
+        rids = [sched.submit(pr, n) for pr, n in zip(prompts, MOE_MAX_NEW,
+                                                     strict=True)]
+        decode = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain0 = flash_attention_plain.calls
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        more = True
+        while more:
+            lanes, prefills = sched.active(), sched.stats["prefills"]
+            ts = time.perf_counter()
+            more = sched.step()
+            torch.cuda.synchronize()
+            if sched.stats["prefills"] == prefills:
+                decode.append((lanes, (time.perf_counter() - ts) * 1e3))
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        inst = instance_counts()["flash_attention"]
+        plain = flash_attention_plain.calls - plain0
+        toks = [sched.finished[r] for r in rids]
+        for r, n in zip(toks, MOE_MAX_NEW, strict=True):
+            require(r.shape == (n,), f"moe {what}: {r.shape[0]} tokens, want {n}")
+            require(bool(((r >= 0) & (r < cfg.vocab)).all()),
+                    f"moe {what}: token outside the vocabulary")
+        prefills = sched.stats["prefills"]
+        require(prefills == len(MOE_PROMPTS), f"moe {what}: {prefills} prefills")
+        require(counts["flash_attention"] == cfg.n_layers * prefills
+                and sum(counts.values()) == counts["flash_attention"],
+                f"moe {what}: launch counts {counts}")
+        require(inst == {"wgmma": cfg.n_layers * prefills, "mma_sync": 0,
+                         "cuda_core": 0}, f"moe {what}: flash instances {inst}")
+        require(plain == 0, f"moe {what}: {plain} plain attention calls")
+        require(sched.alloc.used_blocks() == 0, f"moe {what}: blocks still held")
+        print(f"  {what}: {len(rids)} requests, {sum(MOE_MAX_NEW)} tokens in "
+              f"{wall * 1e3:.1f} ms wall; {sched.stats['steps']} steps; "
+              f"launches {counts}, flash instances {inst}, plain attention "
+              f"calls {plain}", flush=True)
+        return dict(toks=toks, counts=counts, wall=wall, decode=decode,
+                    peak=torch.cuda.max_memory_allocated())
+
+    print(f"moe: Engine on {eng.device}, scheduler with {MOE_LANES} lanes, "
+          f"block size {SERVE_BLOCK}; prompts {list(MOE_PROMPTS)}, max_new "
+          f"{list(MOE_MAX_NEW)}", flush=True)
+    first = serve_once("run 1")
+    second = serve_once("run 2 (same seed)")
+    require(all(np.array_equal(x, y) for x, y in zip(first["toks"],
+                                                     second["toks"], strict=True)),
+            "moe: a second run from the same seed gave other tokens")
+    print("  run 2 tokens equal run 1's", flush=True)
+
+    by_len = {}
+    for pr in prompts:
+        tok = torch.as_tensor(pr, device=dev)
+        if tok.shape[1] in by_len:
+            continue
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.prefill(cfg, params, tok)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        by_len[tok.shape[1]] = min(runs)
+    print("  prefill ms per prompt (host clock around a synchronised call, "
+          "best of 2): " + ", ".join(f"T={t}: {ms:.2f}"
+                                     for t, ms in sorted(by_len.items())),
+          flush=True)
+    dec = [ms for _, ms in second["decode"]]
+    n_dec = sum(lanes for lanes, _ in second["decode"])
+    experts = 3 * cfg.n_layers * cfg.moe.n_experts * cfg.d_model * 2 \
+        * cfg.moe.d_ff_expert
+    print(f"  decode (run 2, steps that admitted no request): {len(dec)} steps, "
+          f"{sum(dec) / len(dec):.3f} ms mean, {min(dec):.3f} ms min per step "
+          f"(up to {MOE_LANES} lanes); {n_dec} tokens in {sum(dec):.1f} ms; "
+          f"expert weights read per step at least {experts / 1e9:.2f} GB "
+          f"(every expert's buffer is computed)", flush=True)
+    print(f"  weights {nbytes / 2**30:.3f} GiB; peak memory "
+          f"{second['peak'] / 2**30:.3f} GiB (max_memory_allocated)", flush=True)
+
+    tok0 = torch.as_tensor(prompts[0], device=dev)
+    lp = params.layers[0]
+    h = layers.rms_norm(params.embed[tok0], lp["attn_norm"], cfg.norm_eps)
+    pos = torch.arange(tok0.shape[1], device=dev)[None]
+    q, k, v = layers.gqa_project(h, lp, cfg, positions=pos)
+    rec = hold_flash(f"olmoe layer 0's q, k, v of a {tok0.shape[1]}-token prompt",
+                     q, k, v, iters=20, library=True, controls=True)
+    require(rec["instance"] == "wgmma", f"moe flash instance {rec['instance']}")
+    del q, k, v, h
+    device_share(torch, f"moe prefill T={tok0.shape[1]}",
+                 lambda: tr.prefill(cfg, params, tok0), "flash", top=10)
+    sched = eng.make_scheduler(lanes=MOE_LANES, max_len=max_len)
+    for pr in prompts[:MOE_LANES]:
+        sched.submit(pr, 32)
+    sched.step()
+    device_share(torch, f"moe 4 decode steps, {MOE_LANES} lanes busy",
+                 lambda: [sched.step() for _ in range(4)], "flash", top=6)
+    del sched, eng, params
+    torch.cuda.empty_cache()
+    rec.update(launches=first["counts"]["flash_attention"],
+               prefill_ms=by_len, decode_ms_mean=sum(dec) / len(dec),
+               peak_gib=second["peak"] / 2**30,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"moe phase: {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -1088,10 +1384,10 @@ def ptxas_lines(log):
     return out
 
 
-def device_share(torch, what, fn, kernel):
+def device_share(torch, what, fn, kernel, top=0):
     """Device busy time of ``fn()`` under ``torch.profiler`` against the
     host's clock around it, and the time of the device events whose name
-    holds ``kernel``."""
+    holds ``kernel``; with ``top``, the ``top`` device rows by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1109,6 +1405,10 @@ def device_share(torch, what, fn, kernel):
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %; idle "
           f"{100 - 100 * busy / wall:.1f} %), {kernel} kernel {own:.3f} ms, "
           f"{sum(e.count for e in rows)} device events", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        us = e.self_device_time_total
+        print(f"    {us / 1e3:9.3f} ms {us / 10 / max(busy, 1e-9):5.1f} %  "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
 
 
 def serve_phase(torch, np, dev, seed, hold_flash):
@@ -1185,7 +1485,7 @@ def serve_phase(torch, np, dev, seed, hold_flash):
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0,
                            "flash_attention": cfg.n_layers * prefills,
-                           "rwkv6": 0},
+                           "rwkv6": 0, "ring_fold": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
         inst = instance_counts()["flash_attention"]
@@ -1280,6 +1580,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of every operand and draw (default 0)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1310,6 +1611,7 @@ def main(argv=None):
         modmatmul_plain,
     )
     from repro_torch.kernels.polyeval import polyeval, polyeval_plain
+    from repro_torch.kernels.ring_fold import ring_fold, ring_fold_plain
     from repro_torch.mpc import (
         P_DEFAULT,
         P_MERSENNE31,
@@ -1501,6 +1803,40 @@ def main(argv=None):
             f"remote dealer mask term [17,2] @ [2,{col}] (K = z)", *pev,
             (rand(p, 17, 2), rand(p, 2, col)), p, iters=10)
         rec[("remote", p)] = remote
+        # the sharded path's own shapes (phase 6d), 4 shards of N_pad = 20:
+        # a shard's W = 5 product, its encode [5,6] @ [6,C], its exchange
+        # [g_mix_t[:, local] | vand_g x 5] @ (h [5,C], masks [10,C]) and one
+        # ring hop's fold of a shard's [5,C] chunk, int32 and int64
+        sharded = {}
+        inst0 = instance_counts()["modmatmul_batched"]
+        sharded["shard product"] = compare(
+            f"sharded shard product [5,{blk},{blk}]^2 (tensor_core, W = 5)",
+            *mmb, (rand(p, 5, blk, blk), rand(p, 5, blk, blk)), p)
+        served = {k: v - inst0[k]
+                  for k, v in instance_counts()["modmatmul_batched"].items()}
+        require(served["tensor_core"] > 0
+                and sum(served.values()) == served["tensor_core"],
+                f"sharded shard product: instances {served}")
+        sharded["shard encode"] = compare(
+            f"sharded encode [5,6] @ [6,{col}]", *pev,
+            (rand(p, 5, 6), rand(p, 6, col)), p, iters=10)
+        sharded["shard exchange"] = compare(
+            f"sharded exchange [20,15] @ (h [5,{col}], masks [10,{col}])", *pev,
+            (rand(p, 20, 15), (rand(p, 5, col), rand(p, 10, col))), p, iters=10)
+        for dt in (torch.int32, torch.int64):
+            name = str(dt).split(".")[-1]
+            sharded[f"ring_fold {name}"] = compare(
+                f"ring_fold {name} [5,{col}] (one shard's chunk, one hop)",
+                ring_fold, ring_fold_plain,
+                (rand(p, 5, col).to(dt), rand(p, 5, col).to(dt)), p, iters=20)
+            compare(f"ring_fold {name} odd C [5,1001]", ring_fold,
+                    ring_fold_plain, (rand(p, 5, 1001).to(dt),
+                                      rand(p, 5, 1001).to(dt)), p, iters=0)
+            compare(f"ring_fold {name} all-(p-1) corner [5,4097]", ring_fold,
+                    ring_fold_plain, (full(p, 5, 4097).to(dt),
+                                      full(p, 5, 4097).to(dt)), p, iters=0,
+                    want=p - 2)
+        rec[("sharded", p)] = sharded
         del ab
         torch.cuda.empty_cache()
 
@@ -1662,7 +1998,7 @@ def main(argv=None):
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
                            "polyeval": 4 * MAIN_BLOCKS, "flash_attention": 0,
-                           "rwkv6": 0},
+                           "rwkv6": 0, "ring_fold": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
         require(inst == {"tensor_core": MAIN_BLOCKS, "skinny": 0,
@@ -1786,7 +2122,7 @@ def main(argv=None):
     tags_counts = launch_counts()
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
                             "polyeval": 0, "flash_attention": 0,
-                            "rwkv6": 0},
+                            "rwkv6": 0, "ring_fold": 0},
             f"tags stage launch counts {tags_counts}")
     require(instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
                                                "cuda_core": 0},
@@ -1807,6 +2143,9 @@ def main(argv=None):
 
     # -------------------- the remote backend over the transport (phase 6c)
     remote_rec = remote_phase(torch, dev, a, b, sess)
+
+    # ------------------------ the sharded backend on a 4-shard mesh (6d)
+    sharded_rec = sharded_phase(torch, dev, gen, a, b, hold_float)
     del a, b
     torch.cuda.empty_cache()
 
@@ -1832,6 +2171,9 @@ def main(argv=None):
 
     # ------------------------------------- serving rwkv6-1.6b at full width
     rwkv_rec = rwkv_phase(torch, np, dev, args.seed, gen)
+
+    # ------------------------------------ serving olmoe-1b-7b at full width
+    moe_rec = moe_phase(torch, np, dev, args.seed, hold_flash)
 
     # ------------------------------------------------------------ report
 
@@ -1879,6 +2221,23 @@ def main(argv=None):
                 what: {"ms": rec[("remote", p)][what]["ms"],
                        "plain_ms": rec[("remote", p)][what]["plain_ms"],
                        "max_abs_err": rec[("remote", p)][what]["max_abs_err"],
+                       "bound_ms": bound(*work)[0],
+                       "bound_by": bound(*work)[1]}
+                for what, work in shapes.items()}
+            ring = sharded_rec["ring"]
+            kernels[-1]["sharded"] = {
+                "path": f"sharded backend, {SHARDS} shards of one card, "
+                        f"int32 wire with prg_masks",
+                "launches": ring["launches"][name], "blocks": ring["blocks"],
+                "launches_per_block": ring["per_block"][name]}
+            shapes = ({"shard product": mm_work(5, blk, blk, blk, p)}
+                      if name == "modmatmul_batched" else
+                      {"shard encode": pe_work(5, 6, col, p),
+                       "shard exchange": pe_work(20, 15, col, p)})
+            kernels[-1]["sharded"]["shapes"] = {
+                what: {"ms": rec[("sharded", p)][what]["ms"],
+                       "plain_ms": rec[("sharded", p)][what]["plain_ms"],
+                       "max_abs_err": rec[("sharded", p)][what]["max_abs_err"],
                        "bound_ms": bound(*work)[0],
                        "bound_by": bound(*work)[1]}
                 for what, work in shapes.items()}
@@ -1936,7 +2295,37 @@ def main(argv=None):
                     "library_device_ms": small["library_device_ms"],
                     "earlier": small["earlier"]},
     })
+    d128 = bound(*moe_rec["work"], moe_rec["peak"])
+    kernels[-1]["at_d128"] = {
+        "path": "olmoe-1b-7b serve prefill", "launches": moe_rec["launches"],
+        "shape": "bf16 causal q, k and v [1,2048,16,128] (layer 0's)",
+        "instance": moe_rec["instance"], "ms": moe_rec["ms"],
+        "plain_ms": moe_rec["plain_ms"], "bound_ms": d128[0],
+        "bound_by": d128[1], "library_ms": moe_rec["library_ms"],
+        "device_ms": moe_rec["device_ms"],
+        "library_device_ms": moe_rec["library_device_ms"],
+        "max_abs_err": moe_rec["max_abs_err"], "earlier": moe_rec["earlier"]}
     kernels.append(rwkv_rec)
+    r = rec[("sharded", p)]["ring_fold int32"]
+    n_fold = 5 * col
+    fb, fby = bound(*fold_work(n_fold, 4), FP32_OPS_PER_S)
+    r64 = rec[("sharded", p)]["ring_fold int64"]
+    kernels.append({
+        "name": "ring_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_fold.cu",
+        "replaces": "src/repro/mpc/secure_matmul.py:43 (plain JAX in "
+                    "mod_ring_reduce_scatter's fori_loop; a port-only kernel)",
+        "launches": sharded_rec["ring"]["launches"]["ring_fold"],
+        "max_abs_err": max(r["max_abs_err"], r64["max_abs_err"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": fb,
+        "bound_by": fby, "library_ms": None,
+        "shape": f"int32 [5,{col}]: one shard's chunk at one hop", "p": p,
+        "path": f"sharded backend, {SHARDS} shards of one card, int32 wire",
+        "int64": {"ms": r64["ms"], "plain_ms": r64["plain_ms"],
+                  "bound_ms": bound(*fold_work(n_fold, 8), FP32_OPS_PER_S)[0]},
+        "calls": sharded_rec["calls"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
+          f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

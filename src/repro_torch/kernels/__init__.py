@@ -8,6 +8,8 @@
   prefill);
 * :mod:`.rwkv6` — the RWKV-6 WKV recurrence with its final state (the
   rwkv family's prefill);
+* :mod:`.ring_fold` — ``(acc + chunk) mod p``, one hop of the sharded
+  runner's int32 ring reduce-scatter (a port-only kernel);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
   binding, at first use.
 
@@ -24,6 +26,7 @@ from typing import Dict
 from . import flash_attention as _flash_attention
 from . import modmatmul as _modmatmul
 from . import polyeval as _polyeval
+from . import ring_fold as _ring_fold
 from . import rwkv6 as _rwkv6
 
 WRAPPERS = {
@@ -32,6 +35,7 @@ WRAPPERS = {
     "polyeval": _polyeval.polyeval,
     "flash_attention": _flash_attention.flash_attention,
     "rwkv6": _rwkv6.rwkv6,
+    "ring_fold": _ring_fold.ring_fold,
 }
 
 

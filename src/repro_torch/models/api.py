@@ -6,7 +6,7 @@
     cache = model.init_cache(cfg, batch, max_len, device=...)
     logits, cache = model.decode_step(cfg, params, cache, token, pos)
 
-Port of ``repro/models/api.py``.  The dense, vlm and ssm (RWKV-6)
+Port of ``repro/models/api.py``.  The dense, moe, vlm and ssm (RWKV-6)
 families are ported; the others raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
@@ -19,13 +19,12 @@ from .config import ModelConfig
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "moe": transformer,
     "vlm": transformer,
     "ssm": rwkv,
 }
 
 _NOT_PORTED = {
-    "moe": "the MoE family (models/moe.py) is not ported yet (ROADMAP "
-           "queue 1, item 12)",
     "hybrid": "the jamba family (models/jamba.py, models/ssm.py) is not "
               "ported yet (ROADMAP queue 1, item 12)",
     "encdec": "the whisper family (models/whisper.py) is not ported yet "

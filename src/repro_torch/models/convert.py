@@ -20,7 +20,6 @@ import torch
 from . import rwkv, transformer
 from .api import get_model
 from .config import ModelConfig
-from .transformer import MOE_TODO
 
 
 def tensor_from_numpy(x: np.ndarray, device) -> torch.Tensor:
@@ -39,14 +38,16 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device):
     """The port's weights from the JAX ``init_params`` tree (numpy
     leaves), on ``device``, as the module of ``cfg.family``; a family
     that is not ported raises as :func:`~repro_torch.models.api.get_model`
-    does."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    does.  A MoE config's blocks become
+    :class:`~repro_torch.models.transformer.MoELayer` s, the router and
+    expert weights carried with the attention weights."""
     family = get_model(cfg)
     model_cls = rwkv.RWKV if family is rwkv else transformer.Transformer
+    layer_cls = (rwkv.Layer if family is rwkv
+                 else transformer.layer_class(cfg))
     stacked = tree["layers"]
-    layers = [family.Layer({name: tensor_from_numpy(stacked[name][li], device)
-                            for name in family.Layer.KEYS})
+    layers = [layer_cls({name: tensor_from_numpy(stacked[name][li], device)
+                         for name in layer_cls.KEYS})
               for li in range(cfg.n_layers)]
     lm_head = tree.get("lm_head")
     return model_cls(

@@ -1,16 +1,14 @@
-"""Decoder-only LM, dense GQA and VLM-backbone families.
+"""Decoder-only LM: the dense GQA, MoE and VLM-backbone families.
 
 Port of ``repro/models/transformer.py``; the functions keep the JAX names
 and signatures so each has an obvious counterpart.  Weights are
-:class:`Transformer` modules holding one :class:`Layer` per block (JAX
-stacks them ``[L, ...]`` for ``lax.scan``; the port loops over layers).
-Prefill attention runs the flash kernel on the card
+:class:`Transformer` modules holding one :class:`Layer` per block (a
+:class:`MoELayer` for a config with ``moe``; JAX stacks them ``[L, ...]``
+for ``lax.scan``, the port loops over layers).  Prefill attention runs the
+flash kernel on the card
 (:func:`~repro_torch.models.layers.attention_chunked`); decode attends over
-a contiguous or paged KV cache in plain torch, written in place.
-
-The MoE FFN (``models/moe.py``) is not ported yet: ``init_params`` (and
-``convert.params_from_numpy``) raise ``NotImplementedError`` for a config
-with ``moe``, so no MoE weights reach the other functions.
+a contiguous or paged KV cache in plain torch, written in place.  A MoE
+block's FFN is :func:`~repro_torch.models.moe.moe_ffn` in every path.
 """
 from __future__ import annotations
 
@@ -31,11 +29,11 @@ from .layers import (
     rms_norm,
     swiglu,
 )
+from .moe import init_moe_params, moe_ffn
 
-LAYER_KEYS = ("attn_norm", "w_q", "w_k", "w_v", "w_o", "ffn_norm", "w1", "w3",
-              "w2")
-MOE_TODO = ("the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue 1, "
-            "item 12")
+ATTN_KEYS = ("attn_norm", "w_q", "w_k", "w_v", "w_o", "ffn_norm")
+LAYER_KEYS = ATTN_KEYS + ("w1", "w3", "w2")
+MOE_LAYER_KEYS = ATTN_KEYS + ("router", "moe_w1", "moe_w3", "moe_w2")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -60,6 +58,18 @@ class Layer(nn.Module):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
+
+
+class MoELayer(Layer):
+    """A MoE block: the attention weights and the router and expert
+    weights ``router [D, E]``, ``moe_w1``/``moe_w3 [E, D, F]``, ``moe_w2
+    [E, F, D]``."""
+
+    KEYS = MOE_LAYER_KEYS
+
+
+def layer_class(cfg: ModelConfig) -> type:
+    return MoELayer if cfg.moe is not None else Layer
 
 
 class Transformer(nn.Module):
@@ -87,8 +97,6 @@ def init_params(cfg: ModelConfig, key, *, device) -> Transformer:
     ``torch.Generator``) on ``device``.  Torch and JAX draw different
     numbers; tests carry JAX's weights across with
     :func:`~repro_torch.models.convert.params_from_numpy`."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
     dev = torch.device(device)
     g = generator(key, dev)
     dt = _dtype(cfg)
@@ -101,33 +109,44 @@ def init_params(cfg: ModelConfig, key, *, device) -> Transformer:
     def ones(n):
         return torch.ones(n, dtype=dt, device=dev)
 
-    layers = [Layer({
-        "attn_norm": ones(d),
-        "w_q": mk((d, cfg.n_heads * hd)),
-        "w_k": mk((d, cfg.n_kv_heads * hd)),
-        "w_v": mk((d, cfg.n_kv_heads * hd)),
-        "w_o": mk((cfg.n_heads * hd, d), cfg.n_heads * hd),
-        "ffn_norm": ones(d),
-        "w1": mk((d, cfg.d_ff)),
-        "w3": mk((d, cfg.d_ff)),
-        "w2": mk((cfg.d_ff, d), cfg.d_ff),
-    }) for _ in range(cfg.n_layers)]
+    def block():
+        w = {"attn_norm": ones(d),
+             "w_q": mk((d, cfg.n_heads * hd)),
+             "w_k": mk((d, cfg.n_kv_heads * hd)),
+             "w_v": mk((d, cfg.n_kv_heads * hd)),
+             "w_o": mk((cfg.n_heads * hd, d), cfg.n_heads * hd),
+             "ffn_norm": ones(d)}
+        if cfg.moe is not None:
+            w.update(init_moe_params(g, d, cfg.moe, dt, device=dev))
+            return MoELayer(w)
+        w.update({"w1": mk((d, cfg.d_ff)), "w3": mk((d, cfg.d_ff)),
+                  "w2": mk((cfg.d_ff, d), cfg.d_ff)})
+        return Layer(w)
+
+    layers = [block() for _ in range(cfg.n_layers)]
     embed = mk((cfg.padded_vocab(), d))
     lm_head = None if cfg.tie_embeddings else mk((d, cfg.padded_vocab()))
     return Transformer(embed, layers, ones(d), lm_head)
 
 
 # ---------------------------------------------------------------- forward --
+def _ffn(cfg: ModelConfig, h, p: Layer):
+    """The block's FFN and its aux loss (0 for the dense FFN)."""
+    if cfg.moe is not None:
+        return moe_ffn(h, p, cfg.moe)
+    return swiglu(h, p["w1"], p["w3"], p["w2"]), 0.0
+
+
 def _layer(cfg: ModelConfig, x, p: Layer, positions, collect_kv: bool = False):
-    """One transformer block (train/prefill path)."""
+    """One transformer block (train/prefill path); returns ``(x, aux, kv)``."""
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = gqa_project(h, p, cfg, positions=positions)
     attn = attention_chunked(q, k, v, causal=True)
     b, t, _, _ = attn.shape
     x = x + attn.reshape(b, t, -1) @ p["w_o"]
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    x = x + swiglu(h, p["w1"], p["w3"], p["w2"])
-    return x, ((k, v) if collect_kv else None)
+    ffn, aux = _ffn(cfg, h, p)
+    return x + ffn, aux, ((k, v) if collect_kv else None)
 
 
 def _embed(params: Transformer, tokens, embeds):
@@ -144,12 +163,15 @@ def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, T_text] int; embeds: [B, T_front, D] (vlm stub).
 
-    Returns (hidden [B, T, D], aux loss scalar: 0 for the dense FFN)."""
+    Returns (hidden [B, T, D], aux loss scalar: the MoE load-balance loss
+    averaged over the layers, 0 for the dense FFN)."""
     x, positions = _embed(params, tokens, embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
-        x, _ = _layer(cfg, x, lp, positions)
+        x, a, _ = _layer(cfg, x, lp, positions)
+        aux = aux + a
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux / cfg.n_layers
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
@@ -159,7 +181,7 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     x, positions = _embed(params, tokens, embeds)
     ks, vs = [], []
     for lp in params.layers:
-        x, (k, v) = _layer(cfg, x, lp, positions, collect_kv=True)
+        x, _, (k, v) = _layer(cfg, x, lp, positions, collect_kv=True)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -201,7 +223,7 @@ def _decode_layers(cfg: ModelConfig, params: Transformer, token, positions,
         q, k_new, v_new = gqa_project(h, lp, cfg, positions=positions)
         x = x + attend(li, q, k_new, v_new).reshape(b, 1, -1) @ lp["w_o"]
         h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+        x = x + _ffn(cfg, h, lp)[0]
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_fn(cfg, params, x)
 

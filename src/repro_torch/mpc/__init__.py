@@ -3,7 +3,8 @@
 Port of ``repro/mpc``.  The public surface is :class:`MPCSpec` +
 :func:`connect`: one frozen parameterization object and one session verb
 set (``matmul`` / ``submit`` / ``flush`` / ``fail`` /
-``validate_survivors``) over the ``local`` and ``batched`` backends, with
+``validate_survivors``) over the ``local``, ``sharded``, ``batched`` and
+``remote`` backends, with
 rectangular and batched operands handled by the shape adapter
 (:mod:`.tiling`).  Sessions run on the card unless the caller passes
 ``device="cpu"``.

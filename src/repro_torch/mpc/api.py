@@ -31,9 +31,9 @@ Heterogeneous worker pools and placements (:mod:`.workers`),
 ``MPCSpec.tune`` and cost-model block search (:mod:`.autotune`), and
 adversary budgets with MAC-verified decode (:mod:`.byzantine`) work as in
 the reference, on the ``local`` and ``batched`` backends; the ``remote``
-backend (the socket transport) serves plain specs, as in the reference.
-The ``sharded`` backend is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+backend (the socket transport) and the ``sharded`` backend (the runner
+over a mesh axis, :mod:`.secure_matmul`) serve plain specs, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -687,9 +687,12 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
     ``max_batch``, ``wave_scalars``, ``inflight``, ``injector``,
     ``recorder``), ``"remote"`` (workers behind the framed socket
     transport: optional ``spawn="thread"|"process"``, ``pipelined``,
-    ``recorder``, see :class:`~repro_torch.mpc.backends.RemoteBackend`) or
-    a constructed backend; ``"sharded"`` raises ``NotImplementedError``
-    naming its ROADMAP item.  Session
+    ``recorder``, see :class:`~repro_torch.mpc.backends.RemoteBackend`),
+    ``"sharded"`` (requires ``mesh=``, a
+    :class:`~repro_torch.parallel.compat.Mesh`; optional ``axis``,
+    ``wire_dtype``, ``prg_masks``; the session runs on
+    ``mesh.devices[0]``, and a ``device`` that disagrees raises) or a
+    constructed backend.  Session
     options: ``key`` (int seed or ``torch.Generator``, the base of every
     per-call key), ``tile_budget`` (the shape adapter's dispatch cap) and
     ``cost`` (a :class:`~repro_torch.mpc.autotune.CostModel`: block sides
@@ -701,7 +704,6 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
     """
     from .backends import resolve_backend
 
-    dev = resolve_device(device)
     key = opts.pop("key", None)
     tile_budget = opts.pop("tile_budget", DEFAULT_TILE_BUDGET)
     cost = opts.pop("cost", None)
@@ -714,12 +716,20 @@ def connect(spec: MPCSpec, backend: str = "local", *, device=None,
             f"the {backend} backend does not verify shares: use the local "
             "or batched backend for specs with adversaries > 0 / an "
             "injector")
-    if backend in ("batched", "remote"):
-        opts.setdefault("device", dev)       # the engine runs where we do
-        if cost is not None and backend == "batched":
-            # the engine re-tunes under the objective it serves with
-            opts.setdefault("cost", cost)
-    be = resolve_backend(backend, **opts)
+    if backend == "sharded" or getattr(backend, "name", None) == "sharded":
+        be = resolve_backend(backend, **opts)    # raises without a mesh
+        dev = be.mesh.devices[0]                 # where the blocks decode
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device={device!r} disagrees with the mesh, "
+                             f"whose first device is {dev}")
+    else:
+        dev = resolve_device(device)
+        if backend in ("batched", "remote"):
+            opts.setdefault("device", dev)       # the engine runs where we do
+            if cost is not None and backend == "batched":
+                # the engine re-tunes under the objective it serves with
+                opts.setdefault("cost", cost)
+        be = resolve_backend(backend, **opts)
     engine = getattr(be, "engine", None)
     if cost is not None and engine is not None and engine.cost is None:
         # a constructed batched backend: align its re-tune objective with

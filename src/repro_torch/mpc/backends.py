@@ -17,8 +17,9 @@ quorum, infeasible pool, adversary budget exhausted) becomes a
   transport (:mod:`repro_torch.transport`), loopback threads or spawned
   processes, computing on the session's device.
 
-The reference's ``sharded`` backend raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+* :class:`ShardedBackend`: every block through a
+  :class:`~repro_torch.mpc.secure_matmul.ShardedCMPC` runner (one per
+  plan) over a mesh axis, decoded on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -458,12 +459,60 @@ class RemoteBackend(MPCBackend):
         return results
 
 
-BACKENDS = {"local": LocalBackend, "batched": BatchedBackend,
-            "remote": RemoteBackend}
+class ShardedBackend(MPCBackend):
+    """Mesh-axis execution through ``ShardedCMPC`` (one runner per plan).
 
-_NOT_PORTED = {
-    "sharded": "the sharded runner slice (ROADMAP queue 1, item 8)",
-}
+    ``mesh`` (a :class:`~repro_torch.parallel.compat.Mesh`), ``axis``,
+    ``wire_dtype`` (``"int64"`` or ``"int32"``) and ``prg_masks`` go to the
+    runners.  A block whose survivor mask is below the quorum becomes a
+    ``BlockFailure``; a kernel or device error propagates."""
+
+    name = "sharded"
+
+    def __init__(self, *, mesh=None, axis: str = "model",
+                 wire_dtype: str = "int64", prg_masks: bool = False):
+        if mesh is None:
+            raise ValueError("the sharded backend requires mesh=...")
+        self.mesh = mesh
+        self.axis = axis
+        self.wire_dtype = wire_dtype
+        self.prg_masks = prg_masks
+        self._runners: Dict[tuple, object] = {}
+
+    def dispatch_scale(self, spec) -> float:
+        """Mesh-shape-aware dispatch weight: N logical workers pack onto
+        the ``axis``-sized mesh, so every per-block program runs its worker
+        phases in ``ceil(N / axis_size)`` serialized waves, and the block
+        search coarsens sooner here than on the local backend."""
+        from .workers import dispatch_waves
+
+        return float(dispatch_waves(spec.n_workers,
+                                    self.mesh.shape[self.axis]))
+
+    def _runner(self, proto):
+        from .secure_matmul import ShardedCMPC
+
+        key = proto.plan_key
+        sh = self._runners.get(key)
+        if sh is None:
+            sh = self._runners[key] = ShardedCMPC(
+                proto, self.mesh, self.axis, wire_dtype=self.wire_dtype,
+                prg_masks=self.prg_masks)
+        return sh
+
+    def run_blocks(self, ops: Sequence[BlockOp]) -> List[BlockResult]:
+        outs: List[BlockResult] = []
+        for op in ops:
+            try:
+                outs.append(self._runner(op.proto).run(
+                    op.a, op.b, op.key, survivors=op.survivors))
+            except QuorumError as e:  # below quorum: isolate the block
+                outs.append(BlockFailure(str(e)))
+        return outs
+
+
+BACKENDS = {"local": LocalBackend, "batched": BatchedBackend,
+            "remote": RemoteBackend, "sharded": ShardedBackend}
 
 
 def resolve_backend(backend: Union[str, MPCBackend],
@@ -474,9 +523,6 @@ def resolve_backend(backend: Union[str, MPCBackend],
             raise ValueError(
                 f"backend options {sorted(opts)} ignored for an instance")
         return backend
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} comes with {_NOT_PORTED[backend]}")
     try:
         cls = BACKENDS[backend]
     except KeyError:

@@ -20,7 +20,10 @@ or ``cuda_core``), each instance is held here, the ones the chooser would
 not pick through the module's private ``_launch``.  The batched engine's
 stages and the verified backends are held against the same calls on the
 CPU, and the kernels that size their shared memory per launch against a
-second card where the process sees one."""
+second card where the process sees one.  The sharded runner is held on a
+mesh of one card repeated four times against the local backend, and on
+two cards where the process sees two; olmoe's prefill attention (D = 128,
+T = 2048) on the ``wgmma`` instance."""
 import dataclasses
 
 import numpy as np
@@ -43,6 +46,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.modmatmul import modmatmul, modmatmul_batched, modmatmul_plain
 from repro_torch.kernels.polyeval import polyeval, polyeval_plain
+from repro_torch.kernels.ring_fold import ring_fold, ring_fold_plain
 from repro_torch.kernels.rwkv6 import agreement as wkv_agreement
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_plain
 from repro_torch.models import rwkv as rw
@@ -87,7 +91,7 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     counts = launch_counts()
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
-                      "flash_attention": 0, "rwkv6": 0}
+                      "flash_attention": 0, "rwkv6": 0, "ring_fold": 0}
 
 
 # (W, M, K, N): the main path's product cut to 128, ragged edges in every
@@ -219,7 +223,7 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
                       "polyeval": 4 * blocks, "flash_attention": 0,
-                      "rwkv6": 0}
+                      "rwkv6": 0, "ring_fold": 0}
 
 
 # (B, T, S, Hq, Hkv, D, dtype, causal, q_offset)
@@ -753,3 +757,122 @@ def test_gpu_timed_stages_record_one_sample_per_call(cuda):
         "encode", "worker_compute", "exchange", "decode", "fused"]
     assert all(s.device == -1 and s.us > 0 and s.scalars > 0
                for s in rec.samples)
+
+
+# ------------------------------------------------------ the sharded runner
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_ring_fold_equals_plain(cuda, p, dtype):
+    """Both payload types, an odd length, views 4 bytes off 16-byte
+    alignment (the scalar path), and the all-(p-1) corner, where an int32
+    sum would overflow for Mersenne-31."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(p % 1000)
+    reset_launch_counts()
+    cases = 0
+    for n in (5 * 2**20, 1001, 3):
+        a, b = (_rand(g, p, (n,)).to(dtype) for _ in range(2))
+        assert torch.equal(ring_fold(a, b, p=p), ring_fold_plain(a, b, p=p))
+        cases += 1
+    buf = _rand(g, p, (2, 4097)).to(dtype)
+    a, b = buf[0, 1:], buf[1, 1:]
+    assert torch.equal(ring_fold(a, b, p=p), ring_fold_plain(a, b, p=p))
+    x = torch.full((5, 1025), p - 1, dtype=dtype, device=cuda)
+    out = ring_fold(x, x, p=p)
+    assert out.dtype == dtype and bool((out == p - 2).all())
+    torch.cuda.synchronize()
+    assert launch_counts()["ring_fold"] == cases + 2
+
+
+def _sharded_session(devices, p, **kw):
+    from repro_torch.parallel import make_mesh
+
+    mesh = make_mesh((len(devices),), ("model",), devices=devices)
+    return connect(MPCSpec(s=2, t=2, z=2, field=Field(p)), backend="sharded",
+                   mesh=mesh, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire,prg", [("int64", False), ("int32", True)])
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_sharded_on_one_card_equals_local(cuda, p, wire, prg):
+    """Four shards on cuda:0: Y equals the local backend's on the card and
+    the exact product; per block 13 polyeval launches (3 per shard and the
+    decode), 4 modmatmul_batched and, on the int32 wire, 12 ring_fold."""
+    rng = np.random.default_rng(5)
+    a, b = rng.integers(0, p, (9, 40)), rng.integers(0, p, (40, 24))
+    want = np.array((a.astype(object) @ b.astype(object)) % p, np.int64)
+    sess = _sharded_session(["cuda:0"] * 4, p, wire_dtype=wire, prg_masks=prg)
+    assert sess.device == torch.device("cuda", 0)
+    reset_launch_counts()
+    got = sess.matmul(a, b, encoded=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    blocks = sess.stats["blocks"]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    local = connect(MPCSpec(s=2, t=2, z=2, field=Field(p))).matmul(
+        a, b, encoded=True)
+    assert torch.equal(got, local)
+    assert counts == {"modmatmul_batched": 4 * blocks, "modmatmul": 0,
+                      "polyeval": 13 * blocks, "flash_attention": 0,
+                      "rwkv6": 0,
+                      "ring_fold": 12 * blocks if wire == "int32" else 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["int64", "int32"])
+def test_gpu_sharded_on_two_cards(cuda, wire):
+    """Shards on cuda:0 and cuda:1: every launch on its shard's device and
+    stream, the chunks crossing by Tensor.to (decided here, not at
+    collection: skips where the process sees one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards in one process")
+    p = P_DEFAULT
+    rng = np.random.default_rng(6)
+    a, b = rng.integers(0, p, (64, 64)), rng.integers(0, p, (64, 64))
+    want = np.array((a.astype(object) @ b.astype(object)) % p, np.int64)
+    sess = _sharded_session(["cuda:0", "cuda:1"], p, wire_dtype=wire,
+                            prg_masks=wire == "int32")
+    got = sess.matmul(a, b, encoded=True)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert got.device == torch.device("cuda", 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_at_olmoe_prefill_shape(cuda):
+    """olmoe-1b-7b's prefill attention: bf16 causal [1,2048,16,128] on the
+    wgmma instance, within agreement of the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(128)
+    q, k, v = (torch.randn((1, 2048, 16, 128), generator=g,
+                           device=cuda).to(torch.bfloat16) for _ in range(3))
+    assert fa.choose_instance(q, k, v) == "wgmma"
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert instance_counts()["flash_attention"]["wgmma"] == 1
+    a = agreement(got, flash_attention_plain(q, k, v, causal=True))
+    assert a["ok"], a
+
+
+@pytest.mark.gpu
+def test_gpu_moe_prefill_matches_the_cpu(cuda):
+    """Reduced olmoe (fp32) on the card against the same weights on the
+    CPU: prefill logits within 1e-4, the FFN's routing the same."""
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    cpu = tr.init_params(cfg, 0, device="cpu")
+    gpu = tr.Transformer(cpu.embed.to(cuda),
+                         [tr.MoELayer({k: lp[k].to(cuda)
+                                       for k in tr.MOE_LAYER_KEYS})
+                          for lp in cpu.layers],
+                         cpu.final_norm.to(cuda),
+                         None if cpu.lm_head is None else cpu.lm_head.to(cuda))
+    toks = torch.randint(0, cfg.vocab, (2, 37), generator=torch.Generator()
+                         .manual_seed(3))
+    want, _ = tr.prefill(cfg, cpu, toks)
+    got, _ = tr.prefill(cfg, gpu, toks.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)

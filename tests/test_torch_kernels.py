@@ -26,6 +26,7 @@ from repro_torch.kernels.modmatmul import (
     modmatmul_batched,
 )
 from repro_torch.kernels.polyeval import polyeval
+from repro_torch.kernels.ring_fold import ring_fold
 from repro_torch.kernels.rwkv6 import rwkv6
 from repro_torch.mpc.errors import ShapeContractError
 
@@ -150,9 +151,10 @@ def test_cpu_tensors_launch_nothing():
     flash_attention(x, x[:, :, :1], x[:, :, :1])
     y = torch.ones((1, 3, 2, 64))
     rwkv6(y, y, y, y, torch.ones((2, 64)))
+    ring_fold(a[0].to(torch.int32), a[0].to(torch.int32), p=P_DEFAULT)
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
                                "polyeval": 0, "flash_attention": 0,
-                               "rwkv6": 0}
+                               "rwkv6": 0, "ring_fold": 0}
 
 
 # ---------------------------------------------------------------- polyeval

@@ -224,16 +224,24 @@ def test_logits_mask_padded_vocab():
 
 # --------------------------------------------------------------- families
 def test_get_model_ports_dense_and_vlm_only():
-    """dense and vlm go through the transformer module, ssm through rwkv;
-    every other family raises naming its ROADMAP item."""
+    """dense, moe and vlm go through the transformer module, ssm through
+    rwkv; hybrid and encdec still raise, naming ROADMAP item 12."""
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "moe", "vlm"):
             assert get_model(cfg) is t_tr, name
         elif cfg.family == "ssm":
             assert get_model(cfg) is t_rwkv, name
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            assert cfg.family in ("hybrid", "encdec"), name
+            with pytest.raises(NotImplementedError, match="item 12"):
                 get_model(cfg)
     moe = reduced(get_config("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        t_tr.init_params(moe, 0, device="cpu")
+    tp = t_tr.init_params(moe, 0, device="cpu")
+    assert all(isinstance(lp, t_tr.MoELayer) for lp in tp.layers)
+    lp = tp.layers[0]
+    e, f = moe.moe.n_experts, moe.moe.d_ff_expert
+    assert lp["router"].shape == (moe.d_model, e)
+    assert lp["moe_w1"].shape == lp["moe_w3"].shape == (e, moe.d_model, f)
+    assert lp["moe_w2"].shape == (e, f, moe.d_model)
+    hidden, aux = t_tr.forward(moe, tp, torch.ones((1, 5), dtype=torch.int64))
+    assert hidden.shape == (1, 5, moe.d_model) and float(aux) > 0

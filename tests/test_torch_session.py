@@ -160,9 +160,9 @@ def test_empty_and_misaligned_operands():
 
 
 def test_not_ported_options_raise():
-    # items 6 and 7 are ported: budgets, pools, tuning, cost-model block
-    # search and the batched backend work and equal the reference; only
-    # the sharded backend still refuses
+    # items 6 to 9 are ported: budgets, pools, tuning, cost-model block
+    # search and the batched, remote and sharded backends work and equal
+    # the reference; nothing in the session refuses any more
     from repro_torch.mpc import CostModel, WorkerPool
     from repro_torch.mpc.backends import BatchedBackend
 
@@ -181,7 +181,16 @@ def test_not_ported_options_raise():
         np.testing.assert_allclose(y.numpy(), a @ b, atol=0.05)
     assert isinstance(connect(MPCSpec(s=2, t=2, z=2), backend="batched",
                               device="cpu").backend, BatchedBackend)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the sharded backend (item 8) serves on its mesh's first device
+    from repro_torch.parallel import make_mesh
+
+    mesh = make_mesh((2,), ("model",), devices=["cpu"] * 2)
+    sharded = connect(MPCSpec(s=2, t=2, z=2), backend="sharded", mesh=mesh)
+    assert sharded.device == torch.device("cpu")
+    y = sharded.matmul(a, b)
+    assert y.device == torch.device("cpu")
+    np.testing.assert_allclose(y.numpy(), a @ b, atol=0.05)
+    with pytest.raises(ValueError, match="mesh="):
         connect(MPCSpec(s=2, t=2, z=2), backend="sharded", device="cpu")
     # the remote backend (item 9) serves on the session's device, and
     # refuses a Byzantine budget as the reference does
