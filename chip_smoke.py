@@ -144,8 +144,37 @@
    ``[1,2048,16,128]`` with the planted faults, timed beside
    ``scaled_dot_product_attention``; prints prefill and decode times, peak
    memory and the device busy share.
-11. Prints one ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+11. The scan phase: holds the selective-scan kernel against its plain
+   version (the reference's chunked associative scan) within
+   ``selective_scan.agreement``'s limits (those of ``rwkv6.agreement``) on
+   y and the final state, at jamba's Di 8192, N 16: ``[1,2048]``,
+   ``[4,2048]`` and a ragged ``[1,1000]``, bf16 and fp32; shows that two
+   planted faults (the decay dropped, b_t one step late) fail that check;
+   times the kernel and the plain version beside the bound.
+12. The jamba phase: serves jamba-v0.1-52b at its published width (d 4096,
+   32 heads / 8 kv of 128, ff 14336, 16 experts top-2, d_state 16, bf16
+   weights drawn from ``--seed``), cut to 8 of its 32 layers (one period of
+   the 1:7 interleave, attention at layer 4, MoE on the odd layers; 13.27 B
+   parameters): ``Engine.generate`` on ``[1, 2048]`` and ``[4, 512]`` (+16
+   each), twice on the same weights with the same tokens; per prefill 1
+   flash launch (wgmma) and 7 ``selective_scan`` launches and nothing else,
+   no plain attention or plain scan call. Holds flash against its plain
+   version on layer 4's real q, k, v, timed beside SDPA; prints prefill and
+   decode times, peak memory and the device busy share. Then, in fp32 at
+   full width and 5 layers (the MoE keeping every pick), decoding one step
+   from a prefill of T - 1 tokens must give the logits and greedy token of
+   a prefill of T, and zeroed conv and ssm states must fail that check.
+13. The whisper phase: serves whisper-small at full width and depth (12 +
+   12 layers, bf16 weights drawn from ``--seed``) on 1500 stub frames a
+   request: ``Engine.generate`` on ``[4, 4]`` and ``[2, 64]`` (+32 each),
+   twice, the same tokens; 36 flash launches per prefill (12 encoder, 12
+   decoder self, 12 cross) and nothing else. Holds flash at the encoder's
+   ``[1,1500,12,64]`` (layer 0's real q, k, v) and the cross shape
+   ``[1,64,12,64] x [1,1500,12,64]``, beside SDPA; prints times, peak
+   memory and the device busy share.
+14. Prints one ``{"jamba": ..., "whisper": ...}`` line, one
+   ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
+   {...}}`` line.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -192,6 +221,17 @@ MOE_LANES = 4
 # Engine.generate calls of (batch, prompt tokens, max_new)
 RWKV_LAYERS, RWKV_HEADS, RWKV_HEAD = 24, 32, 64
 RWKV_CALLS = ((4, 2048, 32), (1, 1000, 16))
+# the scan phase: (B, T) at jamba's Di 8192 = 2 x 4096 and N 16
+SCAN_DI, SCAN_N = 8192, 16
+SCAN_SHAPES = ((1, 2048), (4, 2048), (1, 1000))
+# the jamba phase: jamba-v0.1-52b cut to one period of its interleave; two
+# Engine.generate calls of (batch, prompt tokens, max_new); the fp32 state
+# check at 5 layers (layer 4 is the attention layer)
+JAMBA_LAYERS, JAMBA_STATE_LAYERS = 8, 5
+JAMBA_CALLS = ((1, 2048, 16), (4, 512, 16))
+# the whisper phase: whisper-small, 1500 encoder frames a request
+WHISPER_FRAMES = 1500
+WHISPER_CALLS = ((4, 4, 32), (2, 64, 32))
 # torch's elementwise operators (aten names, in-place forms included): none
 # of them may run over the I-points of a main-path block
 ELEMENTWISE = {"add", "sub", "mul", "where", "remainder", "bitwise_and",
@@ -439,7 +479,7 @@ def rwkv_phase(torch, np, dev, seed, gen):
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0, "flash_attention": 0,
                            "rwkv6": cfg.n_layers * len(RWKV_CALLS),
-                           "ring_fold": 0},
+                           "ring_fold": 0, "selective_scan": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain WKV calls on the card")
         print(f"  {what}: weights drawn in {draw_s:.2f} s; generate "
@@ -1301,6 +1341,428 @@ def moe_phase(torch, np, dev, seed, hold_flash):
     return rec
 
 
+def scan_work(b, t, di, n, elem_bytes):
+    """(bytes, fp32 operations) of one selective scan: u, dt, b and c read
+    once in their dtype and a in fp32, y and the final state written once
+    in fp32; about 6 operations per (b, t, d, n): dt a, the exponential,
+    the update's fma (2), h c and its share of the sum over n."""
+    nbytes = (elem_bytes * (2 * b * t * di + 2 * b * t * n) + 4 * di * n
+              + 4 * b * t * di + 4 * b * di * n)
+    return nbytes, 6 * b * t * di * n
+
+
+def scan_faults(u, dt, a, b_t, c_t):
+    """Two wrong results for the check against the plain version to
+    reject, each made with the plain version: the decay dropped (a = 0),
+    and b_t one step late."""
+    import torch
+
+    from repro_torch.kernels.selective_scan import selective_scan_plain
+
+    yield "decay dropped (a = 0)", selective_scan_plain(
+        u, dt, torch.zeros_like(a), b_t, c_t, return_state=True)
+    late = torch.cat([torch.zeros_like(b_t[:, :1]), b_t[:, :-1]], dim=1)
+    yield "b_t one step late", selective_scan_plain(u, dt, a, late, c_t,
+                                                    return_state=True)
+
+
+def scan_phase(torch, dev, gen):
+    """The selective-scan kernel against its plain version at jamba's
+    widths (Di 8192, N 16), bf16 and fp32, on y and the final state, with
+    two planted faults that must fail the check; timed beside the plain
+    version.  Returns the records by (B, T)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.selective_scan import (
+        agreement,
+        selective_scan,
+        selective_scan_plain,
+    )
+
+    print(f"selective_scan kernel checks (jamba-v0.1-52b: Di {SCAN_DI}, N "
+          f"{SCAN_N}; dt = softplus(N(-4, 1)) as dt_bias -4 gives, a = "
+          f"-(1..N), u, b, c ~ N(0, 1)):", flush=True)
+    rec = {}
+    for b, t in SCAN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            def draw(*shape):
+                return torch.randn(shape, generator=gen, device=dev)
+
+            u = draw(b, t, SCAN_DI).to(dtype)
+            dt = F.softplus(draw(b, t, SCAN_DI) - 4.0).to(dtype)
+            a = -torch.arange(1, SCAN_N + 1, dtype=torch.float32,
+                              device=dev).expand(SCAN_DI, SCAN_N).contiguous()
+            b_t, c_t = draw(b, t, SCAN_N).to(dtype), draw(b, t, SCAN_N).to(dtype)
+            ops = (u, dt, a, b_t, c_t)
+            y, h = selective_scan(*ops, return_state=True)
+            want_y, want_h = selective_scan_plain(*ops, return_state=True)
+            torch.cuda.synchronize()
+            require(y.shape == want_y.shape and h.shape == want_h.shape,
+                    f"scan [{b},{t}]: {tuple(y.shape)} {tuple(h.shape)}")
+            require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                    f"scan [{b},{t}]: non-finite result")
+            a_y, a_h = agreement(y, want_y), agreement(h, want_h)
+            name = str(dtype).split(".")[-1]
+            what = f"[{b},{t},{SCAN_DI},{SCAN_N}] {name}"
+            require(a_y["ok"] and a_h["ok"], f"scan {what}: kernel != plain (y "
+                    f"{readings(a_y)}; state {readings(a_h)})")
+            print(f"  {what}: y {readings(a_y)}; state {readings(a_h)}",
+                  flush=True)
+            served = dtype == torch.bfloat16
+            if served and (b, t) == SCAN_SHAPES[1]:
+                for fault, (bad_y, bad_h) in scan_faults(*ops):
+                    f_y, f_h = agreement(bad_y, want_y), agreement(bad_h, want_h)
+                    require(not f_y["ok"] and not f_h["ok"], f"scan {what}: the "
+                            f"check accepts a planted fault ({fault}: y "
+                            f"{readings(f_y)}; state {readings(f_h)})")
+                    print(f"    control, {fault}: rejected (y {readings(f_y)}; "
+                          f"state {readings(f_h)})", flush=True)
+                    del bad_y, bad_h
+            if served:
+                nbytes, ops_n = scan_work(b, t, SCAN_DI, SCAN_N, 2)
+                bms, by = bound(nbytes, ops_n, FP32_OPS_PER_S)
+                r = rec[(b, t)] = {
+                    "max_abs_err": max(a_y["max_abs_err"], a_h["max_abs_err"]),
+                    "ms": time_ms(torch, lambda: selective_scan(
+                        *ops, return_state=True), 20),
+                    "plain_ms": time_ms(torch, lambda: selective_scan_plain(
+                        *ops, return_state=True), 2),
+                    "bound_ms": bms, "bound_by": by,
+                    "fp32_ops_ms": ops_n / FP32_OPS_PER_S * 1e3}
+                print(f"    kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms,"
+                      f" bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; "
+                      f"{ops_n / 1e9:.2f} G fp32 operations take "
+                      f"{r['fp32_ops_ms']:.4f} ms at the fp32 peak); "
+                      f"{100 * bms / r['ms']:.1f} % of the bound", flush=True)
+            del ops, u, dt, b_t, c_t, y, h, want_y, want_h
+            torch.cuda.empty_cache()
+    return rec
+
+
+def timed_prefill_decode(torch, model, cfg, params, tok, embeds=None, steps=8):
+    """Prefill ``tok`` (best of 2, host clock around a synchronised call),
+    then ``steps`` decode steps from its cache; returns (prefill ms, decode
+    ms per step)."""
+    from repro_torch.serve.engine import _pad_cache
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(cfg, params, tok, embeds=embeds)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    cache = _pad_cache(cache, steps)
+    nxt = logits[:, -1:].argmax(-1)
+    t = tok.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = model.decode_step(cfg, params, cache, nxt, t + i)
+        nxt = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    return min(runs), (time.perf_counter() - t0) * 1e3 / steps
+
+
+def serve_legacy(torch, np, what, eng, prompts, calls, per_prefill, embeds=()):
+    """``Engine.generate`` over ``calls`` ((batch, prompt, max_new)) on the
+    card, with the launch counters zeroed just before: each prefill must
+    launch ``per_prefill`` ({wrapper: launches}) and nothing else, with no
+    plain attention or plain scan call, the flash launches all in the
+    wgmma instance.  Returns (tokens, counts, walls, peak bytes)."""
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.selective_scan import selective_scan_plain
+
+    vocab = eng.cfg.vocab
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain0 = flash_attention_plain.calls + selective_scan_plain.calls
+    reset_launch_counts()
+    toks, walls = [], []
+    for i, (pr, (b, t, n)) in enumerate(zip(prompts, calls, strict=True)):
+        t0 = time.perf_counter()
+        out = eng.generate(pr, n, embeds=embeds[i] if embeds else None)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        want = {k: v * (i + 1) for k, v in per_prefill.items()}
+        require({k: counts[k] for k in want} == want
+                and sum(counts.values()) == sum(want.values()),
+                f"{what}: launches {counts} after {i + 1} prefills, want {want}")
+        out = out.cpu().numpy()
+        require(out.shape == (b, n), f"{what}: tokens {out.shape}")
+        require(bool(((out >= 0) & (out < vocab)).all()),
+                f"{what}: token outside the vocabulary")
+        toks.append(out)
+    counts = launch_counts()
+    inst = instance_counts()["flash_attention"]
+    plain = flash_attention_plain.calls + selective_scan_plain.calls - plain0
+    require(inst["wgmma"] == counts["flash_attention"],
+            f"{what}: flash instances {inst}")
+    require(plain == 0, f"{what}: {plain} plain attention or scan calls")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {what}: generate " + ", ".join(
+        f"[{b},{t}] + {n}: {w:.1f} ms wall" for (b, t, n), w in
+        zip(calls, walls, strict=True)) + f"; launches {counts}, flash "
+        f"instances {inst}, plain attention or scan calls {plain}; peak memory "
+        f"{peak / 2**30:.3f} GiB", flush=True)
+    return toks, counts, walls, peak
+
+
+def jamba_phase(torch, np, dev, seed, hold_flash):
+    """Serve jamba-v0.1-52b at its published width, cut to one period of
+    its interleave (8 layers), twice on the same weights; hold the flash
+    kernel on layer 4's real q, k, v; check in fp32 at 5 layers that the
+    states prefill hands to decode are a longer prefill's.  Returns the
+    flash record at layer 4's shape with the serve run's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import jamba as jb
+    from repro_torch.models.layers import gqa_project, rms_norm
+    from repro_torch.serve import Engine
+    from repro_torch.serve.engine import _pad_cache
+
+    t_phase = time.perf_counter()
+    full = get_config("jamba-v0.1-52b")
+    require((full.family, full.n_layers, full.d_model, full.n_heads,
+             full.n_kv_heads, full.resolved_head_dim, full.d_ff, full.vocab,
+             full.moe.n_experts, full.moe.top_k, full.moe.d_ff_expert,
+             full.ssm.d_state, full.ssm.expand, full.ssm.d_conv,
+             full.attn_every, full.attn_offset, full.dtype)
+            == ("hybrid", 32, 4096, 32, 8, 128, 14336, 65536, 16, 2, 14336,
+                SCAN_N, 2, 4, 8, 4, "bfloat16"),
+            f"jamba-v0.1-52b config changed: {full}")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    attn = [l for l in range(cfg.n_layers) if jb.is_attn_layer(cfg, l)]
+    n_mamba = cfg.n_layers - len(attn)
+    require(attn == [4] and n_mamba == 7, f"jamba interleave {attn}")
+    t0 = time.perf_counter()
+    params = jb.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in params.parameters())
+    nbytes = sum(w.numel() * w.element_size() for w in params.parameters())
+    print(f"jamba: {cfg.name} at its published width (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+          f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}, d_state {cfg.ssm.d_state}, expand "
+          f"{cfg.ssm.expand}, d_conv {cfg.ssm.d_conv}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}), {cfg.n_layers} of its {full.n_layers} layers (one "
+          f"period: attention at layer {attn[0]}, MoE on the odd layers); "
+          f"{n_params / 1e9:.3f} B parameters, {nbytes / 1e9:.3f} GB drawn from "
+          f"seed {seed} in {time.perf_counter() - t0:.2f} s", flush=True)
+    eng = Engine(cfg, params, device=dev)
+    require(eng.device.type == dev.type and not eng._paged,
+            f"jamba engine on {eng.device}, paged {eng._paged}")
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab, (b, t)) for b, t, _ in JAMBA_CALLS]
+    per_prefill = {"flash_attention": len(attn), "selective_scan": n_mamba}
+    first = serve_legacy(torch, np, "run 1", eng, prompts, JAMBA_CALLS,
+                         per_prefill)
+    second = serve_legacy(torch, np, "run 2 (same weights)", eng, prompts,
+                          JAMBA_CALLS, per_prefill)
+    require(all(np.array_equal(x, y) for x, y in zip(first[0], second[0],
+                                                     strict=True)),
+            "jamba: a second run gave other tokens")
+    print("  run 2 tokens equal run 1's", flush=True)
+    times = {}
+    for pr in prompts:
+        tok = torch.as_tensor(pr, device=dev)
+        times[tuple(tok.shape)] = timed_prefill_decode(torch, jb, cfg, params,
+                                                       tok)
+        print(f"  [{tok.shape[0]},{tok.shape[1]}]: prefill "
+              f"{times[tuple(tok.shape)][0]:.2f} ms (best of 2), decode "
+              f"{times[tuple(tok.shape)][1]:.2f} ms per step over 8 steps; "
+              f"the weight-read floor is {nbytes / HBM_BYTES_PER_S * 1e3:.2f} "
+              f"ms a step (every expert's buffer is computed)", flush=True)
+    tok0 = torch.as_tensor(prompts[0], device=dev)
+    device_share(torch, f"jamba prefill [1,{tok0.shape[1]}]",
+                 lambda: jb.prefill(cfg, params, tok0), "scan", top=8)
+    _, cache = jb.prefill(cfg, params, tok0)
+    cache = _pad_cache(cache, 4)
+    nxt = tok0[:, -1:]
+    device_share(torch, "jamba 4 decode steps at batch 1",
+                 lambda: [jb.decode_step(cfg, params, cache, nxt,
+                                         tok0.shape[1] + i) for i in range(4)],
+                 "flash", top=6)
+    del cache
+
+    # the flash kernel on the q, k, v that layer 4 makes of the first prompt
+    x = params.embed[tok0]
+    pos = torch.arange(tok0.shape[1], device=dev)[None]
+    for l in range(attn[0]):
+        p = params.layers[l]
+        x = x + jb._mix(cfg, l, x, p, pos)[0]
+        x = x + jb._ffn(cfg, l, x, p)[0]
+    p4 = params.layers[attn[0]]
+    q, k, v = gqa_project(rms_norm(x, p4["pre_norm"], cfg.norm_eps), p4, cfg,
+                          positions=pos)
+    rec = hold_flash(f"jamba layer {attn[0]}'s q, k, v of a "
+                     f"{tok0.shape[1]}-token prompt", q, k, v, iters=20,
+                     library=True, controls=True)
+    require(rec["instance"] == "wgmma", f"jamba flash instance {rec['instance']}")
+    del q, k, v, x, p, p4, eng, params
+    torch.cuda.empty_cache()
+
+    # the states prefill hands to decode, in fp32 at full width: decode one
+    # step from a prefill of T - 1 tokens against a prefill of T; zeroed
+    # conv and ssm states must fail the same check.  Five layers hold layer
+    # 4's attention; the MoE keeps every pick (capacity E / k), since a
+    # prefill at 1.25 may drop the last token's pick where a one-token
+    # decode step never does
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=JAMBA_STATE_LAYERS, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                                / cfg.moe.top_k))
+    p32 = jb.init_params(cfg32, seed, device=dev)
+    n32 = sum(w.numel() for w in p32.parameters())
+    tok = torch.as_tensor(prompts[1][:1], device=dev)
+    want, _ = jb.prefill(cfg32, p32, tok)
+
+    def from_state(what, zero):
+        _, cache = jb.prefill(cfg32, p32, tok[:, :-1])
+        if zero:
+            for s in cache.conv + cache.ssm:
+                if s is not None:
+                    s.zero_()
+        got, _ = jb.decode_step(cfg32, p32, _pad_cache(cache, 1), tok[:, -1:],
+                                tok.shape[1] - 1)
+        rms = float(want.float().pow(2).mean().sqrt())
+        diff = float((got - want).abs().max())
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        print(f"  {what}: next-token logits max |diff| {diff:.3e} = "
+              f"{diff / rms:.3e} of their rms (limit {STATE_TOL:g}); greedy "
+              f"tokens {'equal' if same else 'differ'}", flush=True)
+        return diff <= STATE_TOL * rms and same
+
+    print(f"  fp32 state check: {cfg32.n_layers} layers at full width, "
+          f"{n32 / 1e9:.3f} B parameters ({4 * n32 / 1e9:.2f} GB)", flush=True)
+    require(from_state(f"decode from a prefill of {tok.shape[1] - 1} tokens vs "
+                       f"a prefill of {tok.shape[1]} (fp32)", False),
+            "jamba: the states handed to decode disagree with a longer prefill")
+    require(not from_state("control, decode from zeroed conv and ssm states",
+                           True),
+            "jamba: the state check accepts zeroed conv and ssm states")
+    del p32, want
+    torch.cuda.empty_cache()
+    rec.update(launches=first[1]["flash_attention"],
+               scan_launches=first[1]["selective_scan"],
+               times={f"{b}x{t}": ms for (b, t), ms in times.items()},
+               peak_gib=second[3] / 2**30, n_params=n_params,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"jamba phase: {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+def whisper_phase(torch, np, dev, seed, hold_flash):
+    """Serve whisper-small at full width and depth, twice on the same
+    weights and frames; hold the flash kernel at the encoder's and the
+    cross-attention's shapes beside SDPA.  Returns the two flash records
+    and the serve run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper as wh
+    from repro_torch.serve import Engine
+    from repro_torch.serve.engine import _pad_cache
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-small")
+    require((cfg.family, cfg.n_layers, cfg.n_enc_layers, cfg.d_model,
+             cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab,
+             cfg.padded_vocab(), cfg.dtype)
+            == ("encdec", 12, 12, 768, 12, 64, 3072, 51865, 51968, "bfloat16"),
+            f"whisper-small config changed: {cfg}")
+    t0 = time.perf_counter()
+    params = wh.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in params.parameters())
+    print(f"whisper: {cfg.name} at its published config ({cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{cfg.padded_vocab()}, {cfg.dtype}); {n_params / 1e9:.3f} B "
+          f"parameters ({params.dec_pos.numel() / 1e6:.1f} M of them the "
+          f"decoder's {params.dec_pos.shape[0]} learned positions) drawn from "
+          f"seed {seed} in {time.perf_counter() - t0:.2f} s", flush=True)
+    eng = Engine(cfg, params, device=dev)
+    require(eng.device.type == dev.type and not eng._paged,
+            f"whisper engine on {eng.device}, paged {eng._paged}")
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab, (b, t)) for b, t, _ in WHISPER_CALLS]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    frames = [torch.randn((b, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                          device=dev).to(params.embed.dtype)
+              for b, _, _ in WHISPER_CALLS]
+    per_prefill = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers}
+    print(f"  Engine.generate {list(WHISPER_CALLS)} (batch, prompt, max_new), "
+          f"{WHISPER_FRAMES} stub frames a request (30 s of audio after the "
+          f"conv frontend), drawn from seed {seed + 3}", flush=True)
+    first = serve_legacy(torch, np, "run 1", eng, prompts, WHISPER_CALLS,
+                         per_prefill, frames)
+    second = serve_legacy(torch, np, "run 2 (same weights)", eng, prompts,
+                          WHISPER_CALLS, per_prefill, frames)
+    require(all(np.array_equal(x, y) for x, y in zip(first[0], second[0],
+                                                     strict=True)),
+            "whisper: a second run gave other tokens")
+    print("  run 2 tokens equal run 1's", flush=True)
+    times = {}
+    for pr, fr in zip(prompts, frames, strict=True):
+        tok = torch.as_tensor(pr, device=dev)
+        times[tuple(tok.shape)] = timed_prefill_decode(torch, wh, cfg, params,
+                                                       tok, fr)
+        print(f"  [{tok.shape[0]},{tok.shape[1]}] + {WHISPER_FRAMES} frames: "
+              f"prefill {times[tuple(tok.shape)][0]:.2f} ms (best of 2, the "
+              f"encoder included), decode {times[tuple(tok.shape)][1]:.2f} ms "
+              f"per step over 8 steps", flush=True)
+    tok0 = torch.as_tensor(prompts[0], device=dev)
+    device_share(torch, f"whisper prefill [{tok0.shape[0]},{tok0.shape[1]}] + "
+                 f"{WHISPER_FRAMES} frames",
+                 lambda: wh.prefill(cfg, params, tok0, embeds=frames[0]),
+                 "flash", top=8)
+    _, cache = wh.prefill(cfg, params, tok0, embeds=frames[0])
+    cache = _pad_cache(cache, 4)
+    device_share(torch, f"whisper 4 decode steps at batch {tok0.shape[0]}",
+                 lambda: [wh.decode_step(cfg, params, cache, tok0[:, -1:],
+                                         tok0.shape[1] + i) for i in range(4)],
+                 "flash", top=6)
+    del cache
+
+    # the kernel on encoder layer 0's real q, k, v of one request's frames
+    fr = frames[0][:1]
+    p0 = params.enc_layers[0]
+    x = fr + wh.sinusoids(WHISPER_FRAMES, cfg.d_model, device=dev).to(fr.dtype)
+    h = wh.layer_norm(x, p0["norm1"]["scale"], p0["norm1"]["bias"], cfg.norm_eps)
+    q, k, v = (wh._heads(cfg, h @ p0[name]) for name in ("w_q", "w_k", "w_v"))
+    enc = hold_flash(f"whisper encoder layer 0's q, k, v [1,{WHISPER_FRAMES},"
+                     f"{cfg.n_heads},{cfg.resolved_head_dim}] (non-causal)",
+                     q, k, v, causal=False, iters=20, library=True,
+                     controls=True)
+    # the cross shape: the longest prompt's queries against the frames' keys
+    t_x = max(t for _, t, _ in WHISPER_CALLS)
+    qx = torch.randn((1, t_x, cfg.n_heads, cfg.resolved_head_dim),
+                     generator=gen, device=dev).to(q.dtype)
+    cross = hold_flash(f"whisper cross-attention [1,{t_x},{cfg.n_heads},"
+                       f"{cfg.resolved_head_dim}] x [1,{WHISPER_FRAMES},"
+                       f"{cfg.n_heads},{cfg.resolved_head_dim}] (non-causal)",
+                       qx, k, v, causal=False, iters=20, library=True)
+    for r in (enc, cross):
+        require(r["instance"] == "wgmma", f"whisper flash instance "
+                f"{r['instance']}")
+    del q, k, v, qx, h, x, eng, params
+    torch.cuda.empty_cache()
+    out = {"launches": first[1]["flash_attention"], "encoder": enc,
+           "cross": cross, "cross_t": t_x,
+           "times": {f"{b}x{t}": ms for (b, t), ms in times.items()},
+           "peak_gib": second[3] / 2**30, "n_params": n_params,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"whisper phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -1485,7 +1947,8 @@ def serve_phase(torch, np, dev, seed, hold_flash):
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0,
                            "flash_attention": cfg.n_layers * prefills,
-                           "rwkv6": 0, "ring_fold": 0},
+                           "rwkv6": 0, "ring_fold": 0,
+                           "selective_scan": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
         inst = instance_counts()["flash_attention"]
@@ -1998,7 +2461,7 @@ def main(argv=None):
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
                            "polyeval": 4 * MAIN_BLOCKS, "flash_attention": 0,
-                           "rwkv6": 0, "ring_fold": 0},
+                           "rwkv6": 0, "ring_fold": 0, "selective_scan": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
         require(inst == {"tensor_core": MAIN_BLOCKS, "skinny": 0,
@@ -2122,7 +2585,7 @@ def main(argv=None):
     tags_counts = launch_counts()
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
                             "polyeval": 0, "flash_attention": 0,
-                            "rwkv6": 0, "ring_fold": 0},
+                            "rwkv6": 0, "ring_fold": 0, "selective_scan": 0},
             f"tags stage launch counts {tags_counts}")
     require(instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
                                                "cuda_core": 0},
@@ -2174,6 +2637,11 @@ def main(argv=None):
 
     # ------------------------------------ serving olmoe-1b-7b at full width
     moe_rec = moe_phase(torch, np, dev, args.seed, hold_flash)
+
+    # ------------- the selective scan, jamba-v0.1-52b and whisper-small
+    scan_rec = scan_phase(torch, dev, gen)
+    jamba_rec = jamba_phase(torch, np, dev, args.seed, hold_flash)
+    whisper_rec = whisper_phase(torch, np, dev, args.seed, hold_flash)
 
     # ------------------------------------------------------------ report
 
@@ -2305,6 +2773,28 @@ def main(argv=None):
         "device_ms": moe_rec["device_ms"],
         "library_device_ms": moe_rec["library_device_ms"],
         "max_abs_err": moe_rec["max_abs_err"], "earlier": moe_rec["earlier"]}
+    for key, shape, r in (
+            ("at_jamba", "bf16 causal q [1,2048,32,128], k and v [1,2048,8,128] "
+             "(jamba layer 4's)", jamba_rec),
+            ("at_whisper_encoder", "bf16 non-causal q, k and v "
+             f"[1,{WHISPER_FRAMES},12,64] (whisper encoder layer 0's)",
+             whisper_rec["encoder"]),
+            ("at_whisper_cross", f"bf16 non-causal q [1,{whisper_rec['cross_t']},"
+             f"12,64], k and v [1,{WHISPER_FRAMES},12,64]",
+             whisper_rec["cross"])):
+        b_ms, b_by = bound(*r["work"], r["peak"])
+        kernels[-1][key] = {
+            "shape": shape, "instance": r["instance"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "max_abs_err": r["max_abs_err"]}
+    kernels[-1]["at_jamba"]["launches"] = jamba_rec["launches"]
+    kernels[-1]["at_jamba"]["path"] = "jamba-v0.1-52b (8 layers) serve prefill"
+    kernels[-1]["at_whisper_encoder"]["launches"] = whisper_rec["launches"]
+    kernels[-1]["at_whisper_encoder"]["path"] = (
+        "whisper-small serve prefill (encoder, decoder self and cross: 36 a "
+        "prefill)")
     kernels.append(rwkv_rec)
     r = rec[("sharded", p)]["ring_fold int32"]
     n_fold = 5 * col
@@ -2324,6 +2814,29 @@ def main(argv=None):
         "int64": {"ms": r64["ms"], "plain_ms": r64["plain_ms"],
                   "bound_ms": bound(*fold_work(n_fold, 8), FP32_OPS_PER_S)[0]},
         "calls": sharded_rec["calls"]})
+    served = scan_rec[SCAN_SHAPES[1]]
+    b, t = SCAN_SHAPES[1]
+    kernels.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:59 (_selective_scan_chunked, plain "
+                    "JAX: a lax.scan of lax.associative_scan; a port-only "
+                    "kernel)",
+        "launches": jamba_rec["scan_launches"],
+        "max_abs_err": served["max_abs_err"], "ms": served["ms"],
+        "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+        "bound_by": served["bound_by"], "library_ms": None,
+        "fp32_ops_ms": served["fp32_ops_ms"],
+        "shape": f"bf16 u, dt [{b},{t},{SCAN_DI}], b, c [{b},{t},{SCAN_N}]; fp32 "
+                 f"a, y and state",
+        "path": "jamba-v0.1-52b (8 layers) serve prefill: 7 a prefill",
+        "other_shapes": {f"{bb}x{tt}": {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+            for (bb, tt), r in scan_rec.items() if (bb, tt) != (b, t)}})
+    print(json.dumps({"jamba": {k: jamba_rec[k] for k in (
+        "times", "peak_gib", "n_params", "phase_s")}, "whisper": {
+        k: whisper_rec[k] for k in ("times", "peak_gib", "n_params",
+                                    "phase_s")}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,8 @@
   rwkv family's prefill);
 * :mod:`.ring_fold` — ``(acc + chunk) mod p``, one hop of the sharded
   runner's int32 ring reduce-scatter (a port-only kernel);
+* :mod:`.selective_scan` — Mamba's selective scan with its final state
+  (the hybrid family's prefill; a port-only kernel);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
   binding, at first use.
 
@@ -28,6 +30,7 @@ from . import modmatmul as _modmatmul
 from . import polyeval as _polyeval
 from . import ring_fold as _ring_fold
 from . import rwkv6 as _rwkv6
+from . import selective_scan as _selective_scan
 
 WRAPPERS = {
     "modmatmul_batched": _modmatmul.modmatmul_batched,
@@ -36,6 +39,7 @@ WRAPPERS = {
     "flash_attention": _flash_attention.flash_attention,
     "rwkv6": _rwkv6.rwkv6,
     "ring_fold": _ring_fold.ring_fold,
+    "selective_scan": _selective_scan.selective_scan,
 }
 
 

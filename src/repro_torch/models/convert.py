@@ -1,14 +1,18 @@
 """Carry the JAX package's weights into the port.
 
 ``params_from_numpy(cfg, tree, device=...)`` takes the tree that the JAX
-family's ``init_params`` returns (``repro.models.transformer`` or
-``repro.models.rwkv``), with every leaf as a numpy array
+family's ``init_params`` returns, with every leaf as a numpy array
 (``jax.tree.map(np.asarray, params)``), and builds the port's module for
-``cfg.family``: a :class:`~repro_torch.models.transformer.Transformer` or
-an :class:`~repro_torch.models.rwkv.RWKV`.  The stacked ``[L, ...]``
-layer arrays are cut into one layer module each.  This module has no
-counterpart in the JAX package; it exists so that tests can run both
-packages on the same weights.
+``cfg.family``: a :class:`~repro_torch.models.transformer.Transformer`,
+an :class:`~repro_torch.models.rwkv.RWKV`, a
+:class:`~repro_torch.models.jamba.Jamba` or a
+:class:`~repro_torch.models.whisper.Whisper`.  The dense, moe, vlm and ssm
+trees stack their layers ``[L, ...]``; those arrays are cut into one layer
+module each.  The hybrid and encdec trees hold lists of per-layer dicts
+(nested: jamba's ``"mamba"`` block, whisper's ``{"scale", "bias"}``
+norms), which keep their shape.  This module has no counterpart in the
+JAX package; it exists so that tests can run both packages on the same
+weights.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from . import rwkv, transformer
+from . import jamba, rwkv, transformer, whisper
 from .api import get_model
 from .config import ModelConfig
 
@@ -42,6 +46,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device):
     :class:`~repro_torch.models.transformer.MoELayer` s, the router and
     expert weights carried with the attention weights."""
     family = get_model(cfg)
+    if family in (jamba, whisper):
+        tree = _tensors(tree, device)
+        return (jamba.build(cfg, tree) if family is jamba
+                else whisper.Whisper(tree))
     model_cls = rwkv.RWKV if family is rwkv else transformer.Transformer
     layer_cls = (rwkv.Layer if family is rwkv
                  else transformer.layer_class(cfg))
@@ -54,3 +62,12 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device):
         tensor_from_numpy(tree["embed"], device), layers,
         tensor_from_numpy(tree["final_norm"], device),
         None if lm_head is None else tensor_from_numpy(lm_head, device))
+
+
+def _tensors(tree, device):
+    """The same tree with every numpy leaf a tensor on ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)

@@ -68,6 +68,32 @@ class MoELayer(Layer):
     KEYS = MOE_LAYER_KEYS
 
 
+class Tree(nn.Module):
+    """Weights from a nested tree named as in a JAX ``init_params`` tree:
+    a tensor becomes a frozen parameter, a mapping a child ``Tree`` and a
+    list of mappings an ``nn.ModuleList`` of them, so ``p["w_q"]``,
+    ``p["norm1"]["scale"]`` and ``p["layers"][3]`` read like the JAX
+    dicts.  For the families whose layers are not all alike (hybrid,
+    encdec)."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(name, _frozen(value))
+            elif isinstance(value, Mapping):
+                self.add_module(name, Tree(value))
+            else:
+                self.add_module(name, nn.ModuleList(Tree(v) for v in value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
 def layer_class(cfg: ModelConfig) -> type:
     return MoELayer if cfg.moe is not None else Layer
 

@@ -4,9 +4,9 @@ Port of ``repro/serve/engine.py``.  ``Engine.generate`` keeps the seed
 contract, ``[B, T] -> [B, max_new]`` greedy continuation, and routes the
 transformer families through the paged
 :class:`~repro_torch.serve.scheduler.ServeScheduler` (one lane per row,
-pool sized to the call).  Families without a paged decode path (rwkv)
-keep ``_generate_legacy``, the one-shot loop over a static cache, which is
-also the paged path's exactness oracle.
+pool sized to the call).  Families without a paged decode path (rwkv,
+jamba, whisper) keep ``_generate_legacy``, the one-shot loop over a
+static cache, which is also the paged path's exactness oracle.
 
 Long-lived serving should use :meth:`Engine.make_scheduler` directly:
 submit requests as they arrive, call ``step``/``run``, and let paging and
@@ -19,6 +19,7 @@ counterpart: torch runs eagerly, and the caches are written in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -32,16 +33,27 @@ from .scheduler import ServeScheduler, check_params_device
 
 
 def _pad_cache(cache, extra: int):
-    """Grow a stacked ``[..., S, H, D]`` KV cache by ``extra`` slots of S.
-    Any other cache (a recurrent state of constant size) passes through
-    unchanged."""
-    if not isinstance(cache, KVCache):
-        return cache
+    """Grow every KV cache in ``cache`` along its sequence dim (``[..., S,
+    H, D]``) by ``extra`` slots, walking lists, tuples and dataclasses as
+    the reference does (jamba keeps a list of per-layer caches, whisper a
+    list inside a dataclass).  What holds no KV cache (a recurrent state
+    of constant size, an encoder output) comes back as the same object."""
+    if isinstance(cache, KVCache):
+        def pad(x):
+            return F.pad(x, (0, 0, 0, 0, 0, extra))
 
-    def pad(x):
-        return F.pad(x, (0, 0, 0, 0, 0, extra))
-
-    return KVCache(k=pad(cache.k), v=pad(cache.v), length=cache.length)
+        return KVCache(k=pad(cache.k), v=pad(cache.v), length=cache.length)
+    if isinstance(cache, (list, tuple)):
+        items = [_pad_cache(o, extra) for o in cache]
+        same = all(a is b for a, b in zip(items, cache, strict=True))
+        return cache if same else type(cache)(items)
+    if dataclasses.is_dataclass(cache) and not isinstance(cache, type):
+        fields = {f.name: getattr(cache, f.name)
+                  for f in dataclasses.fields(cache)}
+        grown = {k: _pad_cache(v, extra) for k, v in fields.items()}
+        same = all(grown[k] is v for k, v in fields.items())
+        return cache if same else type(cache)(**grown)
+    return cache
 
 
 class Engine:
@@ -99,7 +111,12 @@ class Engine:
         # (positions base .. base + max_new - 2)
         cache = _pad_cache(cache, max_new - 1)
         tok = logits[:, -1:].argmax(dim=-1)
-        base = prompt.shape[1] + (embeds.shape[1] if embeds is not None else 0)
+        # the first decode position is the count of positions the prefill
+        # cache holds: the prompt, and the embeds where they are decoder
+        # positions (vlm).  whisper's embeds are encoder frames and hold no
+        # slot of its self-KV; the reference counts them anyway (ROADMAP
+        # §3, "Facts about the reference")
+        base = cache.length
         out = [tok]
         for i in range(max_new - 1):
             logits, cache = self.model.decode_step(self.cfg, self.params,

@@ -11,7 +11,8 @@ Attention is held within ``flash_attention.agreement``'s limits: 2e-5 in
 fp32; in bf16 two ULP of each element (2^-6 of |ref| plus its row's rms)
 and 2^-8 in relative Frobenius norm.  The WKV-6 kernel is held within
 ``rwkv6.agreement``'s limits: 1e-4 of each element's |ref| plus its row's
-rms, and 1e-5 in relative Frobenius norm.  The served models' logits are
+rms, and 1e-5 in relative Frobenius norm; so is Mamba's selective scan
+(``selective_scan.agreement`` is the same check).  The served models' logits are
 held at 1e-4 against the same model on the CPU (sums in another order).
 
 Where a wrapper chooses between kernels (``modmatmul*``: ``tensor_core``,
@@ -23,7 +24,9 @@ CPU, and the kernels that size their shared memory per launch against a
 second card where the process sees one.  The sharded runner is held on a
 mesh of one card repeated four times against the local backend, and on
 two cards where the process sees two; olmoe's prefill attention (D = 128,
-T = 2048) on the ``wgmma`` instance."""
+T = 2048) on the ``wgmma`` instance.  Reduced jamba and whisper run
+their prefill through the kernels (1 flash and 7 scan launches; 6 flash
+launches) and match the CPU."""
 import dataclasses
 
 import numpy as np
@@ -49,8 +52,14 @@ from repro_torch.kernels.polyeval import polyeval, polyeval_plain
 from repro_torch.kernels.ring_fold import ring_fold, ring_fold_plain
 from repro_torch.kernels.rwkv6 import agreement as wkv_agreement
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_plain
+from repro_torch.kernels.selective_scan import (
+    selective_scan,
+    selective_scan_plain,
+)
+from repro_torch.models import jamba as jb
 from repro_torch.models import rwkv as rw
 from repro_torch.models import transformer as tr
+from repro_torch.models import whisper as wh
 from repro_torch.mpc import P_DEFAULT, P_MERSENNE31, Field, MPCSpec, connect
 from repro_torch.serve import Engine
 
@@ -91,7 +100,8 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     counts = launch_counts()
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
-                      "flash_attention": 0, "rwkv6": 0, "ring_fold": 0}
+                      "flash_attention": 0, "rwkv6": 0, "ring_fold": 0,
+                      "selective_scan": 0}
 
 
 # (W, M, K, N): the main path's product cut to 128, ragged edges in every
@@ -223,7 +233,8 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
                       "polyeval": 4 * blocks, "flash_attention": 0,
-                      "rwkv6": 0, "ring_fold": 0}
+                      "rwkv6": 0, "ring_fold": 0,
+                      "selective_scan": 0}
 
 
 # (B, T, S, Hq, Hkv, D, dtype, causal, q_offset)
@@ -817,7 +828,8 @@ def test_gpu_sharded_on_one_card_equals_local(cuda, p, wire, prg):
     assert counts == {"modmatmul_batched": 4 * blocks, "modmatmul": 0,
                       "polyeval": 13 * blocks, "flash_attention": 0,
                       "rwkv6": 0,
-                      "ring_fold": 12 * blocks if wire == "int32" else 0}
+                      "ring_fold": 12 * blocks if wire == "int32" else 0,
+                      "selective_scan": 0}
 
 
 @pytest.mark.gpu
@@ -876,3 +888,152 @@ def test_gpu_moe_prefill_matches_the_cpu(cuda):
     got, _ = tr.prefill(cfg, gpu, toks.to(cuda))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+# ----------------------------------------------------- the selective scan
+# (B, T, Di, N, dtype, dt mean, strided): the served layout cut in T and Di;
+# a ragged T on views cut from wider tensors (as the model's split of x_bc
+# hands b_t and c_t over); Di not a multiple of the block's channels; one
+# step; N of 8 and 32; strong decay
+SCAN_CASES = [
+    (2, 300, 256, 16, torch.bfloat16, -4.0, False),
+    (1, 1000, 512, 16, torch.float32, -4.0, True),
+    (3, 64, 100, 8, torch.float32, 0.0, False),
+    (1, 1, 16, 32, torch.bfloat16, -4.0, True),
+    (2, 129, 72, 32, torch.float32, 1.0, False),
+    (1, 70, 40, 16, torch.bfloat16, 0.0, True),
+]
+
+
+def _scan_operands(g, b, t, di, n, dtype, dt_mean, strided):
+    dev = g.device
+
+    def draw(*shape):
+        if strided:         # a view of every other column block of a wider one
+            wide = torch.randn((*shape[:-1], 2 * shape[-1]), generator=g,
+                               device=dev)
+            return wide[..., :shape[-1]]
+        return torch.randn(shape, generator=g, device=dev)
+
+    u = draw(b, t, di)
+    dt = torch.nn.functional.softplus(draw(b, t, di) + dt_mean)
+    b_t, c_t = draw(b, t, n), draw(b, t, n)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        di, n).contiguous() * (1 + 0.1 * torch.rand((di, 1), generator=g,
+                                                    device=dev))
+    return tuple(x.to(dtype) for x in (u, dt)) + (a,) + tuple(
+        x.to(dtype) for x in (b_t, c_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_gpu_selective_scan_equals_plain(cuda, case):
+    b, t, di, n, dtype, dt_mean, strided = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * 1000 + t + di)
+    ops = _scan_operands(g, b, t, di, n, dtype, dt_mean, strided)
+    reset_launch_counts()
+    plain0 = selective_scan_plain.calls
+    y, state = selective_scan(*ops, return_state=True)
+    y_only = selective_scan(*ops)
+    torch.cuda.synchronize()
+    assert launch_counts()["selective_scan"] == 2
+    assert selective_scan_plain.calls == plain0
+    want_y, want_state = selective_scan_plain(*ops, return_state=True)
+    assert y.dtype == state.dtype == torch.float32
+    assert y.shape == (b, t, di) and state.shape == (b, di, n)
+    assert torch.equal(y, y_only)
+    assert wkv_agreement(y, want_y)["ok"], wkv_agreement(y, want_y)
+    assert wkv_agreement(state, want_state)["ok"], wkv_agreement(state,
+                                                                 want_state)
+
+
+@pytest.mark.gpu
+def test_gpu_selective_scan_check_rejects_planted_faults(cuda):
+    """The kernel passes; a dropped decay (a = 0), or b_t one step late,
+    fail the same check."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    ops = _scan_operands(g, 2, 400, 256, 16, torch.bfloat16, -4.0, False)
+    u, dt, a, b_t, c_t = ops
+    y, state = selective_scan(*ops, return_state=True)
+    want_y, want_state = selective_scan_plain(*ops, return_state=True)
+    assert wkv_agreement(y, want_y)["ok"] and wkv_agreement(state,
+                                                            want_state)["ok"]
+    no_decay = selective_scan_plain(u, dt, torch.zeros_like(a), b_t, c_t,
+                                    return_state=True)
+    late = selective_scan_plain(u, dt, a, torch.roll(b_t, 1, dims=1), c_t,
+                                return_state=True)
+    for bad_y, bad_state in (no_decay, late):
+        assert not wkv_agreement(bad_y, want_y)["ok"]
+        assert not wkv_agreement(bad_state, want_state)["ok"]
+
+
+@pytest.mark.gpu
+def test_gpu_selective_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 4, 16), device=cuda)
+    bc = torch.zeros((1, 4, 4), device=cuda)
+    with pytest.raises(ValueError, match="N in"):
+        selective_scan(x, x, torch.zeros((16, 4), device=cuda), bc, bc)
+    y = torch.zeros((1, 16, 4), device=cuda).transpose(1, 2)    # Di strided
+    b8 = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        selective_scan(y, y, torch.zeros((16, 8), device=cuda), b8, b8)
+
+
+# ------------------------------------------- the hybrid and encdec families
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_jamba_prefill_runs_the_kernels_and_matches_the_cpu(cuda, dtype):
+    """Reduced jamba (8 layers, N 8) on the card: 1 flash and 7 scan
+    launches a prefill, no plain call; fp32 logits within 1e-4 of the CPU's
+    and greedy tokens equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("jamba-v0.1-52b")), dtype=dtype)
+    cpu = jb.init_params(cfg, 0, device="cpu")
+    gpu = jb.init_params(cfg, 0, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab,
+                                                              (2, 70)))
+    reset_launch_counts()
+    plain0 = flash_attention_plain.calls + selective_scan_plain.calls
+    logits, cache = jb.prefill(cfg, gpu, toks.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention"] == 1 and counts["selective_scan"] == 7
+    assert sum(counts.values()) == 8
+    assert flash_attention_plain.calls + selective_scan_plain.calls == plain0
+    if dtype == "float32":
+        want, want_cache = jb.prefill(cfg, cpu, toks)
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(cache.ssm[0].cpu(), want_cache.ssm[0],
+                                   atol=1e-4, rtol=1e-4)
+        got = Engine(cfg, gpu).generate(toks.to(cuda), 4)
+        assert torch.equal(got.cpu(), Engine(cfg, cpu, device="cpu")
+                           .generate(toks, 4))
+
+
+@pytest.mark.gpu
+def test_gpu_whisper_prefill_runs_the_kernels_and_matches_the_cpu(cuda):
+    """Reduced whisper (2 + 2 layers): 6 flash launches a prefill (encoder
+    self, decoder self and cross), none in decode; logits within 1e-4 of
+    the CPU's and greedy tokens equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("whisper-small"))
+    cpu = wh.init_params(cfg, 0, device="cpu")
+    gpu = wh.init_params(cfg, 0, device="cpu").to(cuda)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+    frames = torch.from_numpy(rng.standard_normal((2, 150, cfg.d_model))
+                              .astype(np.float32))
+    reset_launch_counts()
+    plain0 = flash_attention_plain.calls
+    logits, _ = wh.prefill(cfg, gpu, toks.to(cuda), embeds=frames.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 6
+    assert flash_attention_plain.calls == plain0
+    want, _ = wh.prefill(cfg, cpu, toks, embeds=frames)
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    got = Engine(cfg, gpu).generate(toks.to(cuda), 5, embeds=frames.to(cuda))
+    assert launch_counts()["flash_attention"] == 12
+    assert torch.equal(got.cpu(), Engine(cfg, cpu, device="cpu")
+                       .generate(toks, 5, embeds=frames))

@@ -28,6 +28,7 @@ from repro_torch.kernels.modmatmul import (
 from repro_torch.kernels.polyeval import polyeval
 from repro_torch.kernels.ring_fold import ring_fold
 from repro_torch.kernels.rwkv6 import rwkv6
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.mpc.errors import ShapeContractError
 
 PRIMES = [P_DEFAULT, P_MERSENNE31]
@@ -152,9 +153,12 @@ def test_cpu_tensors_launch_nothing():
     y = torch.ones((1, 3, 2, 64))
     rwkv6(y, y, y, y, torch.ones((2, 64)))
     ring_fold(a[0].to(torch.int32), a[0].to(torch.int32), p=P_DEFAULT)
+    z = torch.ones((1, 3, 4))
+    selective_scan(z, z, -torch.ones((4, 8)), z[..., :1].expand(1, 3, 8),
+                   z[..., :1].expand(1, 3, 8))
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
                                "polyeval": 0, "flash_attention": 0,
-                               "rwkv6": 0, "ring_fold": 0}
+                               "rwkv6": 0, "ring_fold": 0, "selective_scan": 0}
 
 
 # ---------------------------------------------------------------- polyeval

@@ -224,17 +224,18 @@ def test_logits_mask_padded_vocab():
 
 # --------------------------------------------------------------- families
 def test_get_model_ports_dense_and_vlm_only():
-    """dense, moe and vlm go through the transformer module, ssm through
-    rwkv; hybrid and encdec still raise, naming ROADMAP item 12."""
+    """Every family maps to a module and none raises: dense, moe and vlm go
+    through the transformer module, ssm through rwkv, hybrid through jamba
+    and encdec through whisper (the name dates from when only dense and
+    vlm were ported)."""
+    from repro_torch.models import jamba as t_jamba
+    from repro_torch.models import whisper as t_whisper
+
+    modules = {"dense": t_tr, "moe": t_tr, "vlm": t_tr, "ssm": t_rwkv,
+               "hybrid": t_jamba, "encdec": t_whisper}
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "moe", "vlm"):
-            assert get_model(cfg) is t_tr, name
-        elif cfg.family == "ssm":
-            assert get_model(cfg) is t_rwkv, name
-        else:
-            assert cfg.family in ("hybrid", "encdec"), name
-            with pytest.raises(NotImplementedError, match="item 12"):
-                get_model(cfg)
+        assert get_model(cfg) is modules[cfg.family], name
+    assert {cfg.family for cfg in ARCHS.values()} == set(modules)
     moe = reduced(get_config("olmoe-1b-7b"))
     tp = t_tr.init_params(moe, 0, device="cpu")
     assert all(isinstance(lp, t_tr.MoELayer) for lp in tp.layers)
