@@ -110,7 +110,8 @@
    drawn from ``--seed``): ``Engine`` on the card, a scheduler with 4
    lanes and block size 16, 8 requests of 128 to 2048 prompt tokens.
    Checks every request's tokens, mid-stream admission, 16 flash launches
-   per prefill (all in the wgmma instance) and no plain attention, and
+   per prefill (all in the wgmma instance, none writing the training
+   forward's lse) and no plain attention, and
    that a second run gives the same tokens; holds the kernel against its
    plain version on layer 0's real q, k, v; prints prefill times (one
    ``prefill`` call per prompt length), the scheduler's decode step times
@@ -172,9 +173,35 @@
    ``[1,1500,12,64]`` (layer 0's real q, k, v) and the cross shape
    ``[1,64,12,64] x [1,1500,12,64]``, beside SDPA; prints times, peak
    memory and the device busy share.
-14. Prints one ``{"jamba": ..., "whisper": ...}`` line, one
-   ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
-   {...}}`` line.
+14. The flash-backward phase: holds ``flash_attention_bwd`` (dq, dk and dv
+   from q, k, v, o, dO and the forward kernel's own lse) against its plain
+   version within ``flash_attention.grad_agreement``'s limits at llama3.2-1b's
+   training shape ``[4,2048,32/8,64]`` causal, olmoe's and jamba's D = 128,
+   whisper-small's encoder ``[8,1500,12,64]`` (non-causal), decoder-self
+   ``[8,448]`` and cross (T 448, S 1500) shapes, one fp32 shape and rows that
+   see no key (zero dq there); the same bits twice (no atomics); three
+   planted faults (D omitted, the scale dropped from dK, the GQA sum over
+   one head) must fail the check; times the kernel, the plain version and
+   SDPA's backward (the yardstick, k and v repeated to the q-heads outside
+   the timing) beside the bound.
+15. The train phase: llama3.2-1b at full width and depth (bf16 weights from
+   ``--seed``, fp32 AdamW, remat per layer) through
+   ``launch.train.train_loop`` on one repeated batch of 4 x 2048 tokens for
+   8 steps: per step 32 flash forward launches (wgmma, lse written; 16 of
+   them remat's recompute) and 16 backward (mma_sync), no plain attention,
+   and the last loss below the first by ``TRAIN_DROP``; prints loss, lr and
+   gnorm per step, ms per step, tokens/s and peak memory.  Then, at full
+   width cut to 2 layers: 4 steps uninterrupted against 2 steps, a
+   checkpoint through ``CheckpointManager`` (restored bit for bit) and 2
+   resumed steps (losses within ``RESUME_TOL``); one fp32 step's loss and
+   gradients through the kernels against plain attention under autograd
+   (``CUT_TOL``); whisper-small at full width, 8 x 448 tokens on 1500
+   frames, 3 steps through ``make_train_step`` (72 forward and 36 backward
+   launches a step); and rwkv's and jamba's ``loss_fn`` refusing under
+   autograd on the card (ROADMAP queue 1, item 15).
+16. Prints one ``{"train": ...}`` line, one ``{"jamba": ..., "whisper":
+   ...}`` line, one ``{"kernels": [...]}`` line and, last, the ``{"ok":
+   true, "device": {...}}`` line.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -478,6 +505,7 @@ def rwkv_phase(torch, np, dev, seed, gen):
         peak = torch.cuda.max_memory_allocated()
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0, "flash_attention": 0,
+                           "flash_attention_bwd": 0,
                            "rwkv6": cfg.n_layers * len(RWKV_CALLS),
                            "ring_fold": 0, "selective_scan": 0},
                 f"{what}: launch counts {counts}")
@@ -1763,6 +1791,467 @@ def whisper_phase(torch, np, dev, seed, hold_flash):
     return out
 
 
+# the flash-backward phase: (what, B, T, S, Hq, Hkv, D, dtype, causal,
+# q_offset, timed): llama3.2-1b's training shape, olmoe's and jamba's
+# D = 128, whisper-small's encoder, decoder-self and cross shapes at its
+# training batch, one fp32 shape and rows that see no key
+BWD_CASES = (
+    ("llama3.2-1b train", 4, 2048, 2048, 32, 8, 64, "bfloat16", True, 0, True),
+    ("olmoe-1b-7b D = 128", 1, 2048, 2048, 16, 16, 128, "bfloat16", True, 0,
+     True),
+    ("jamba D = 128, GQA 4", 1, 2048, 2048, 32, 8, 128, "bfloat16", True, 0,
+     False),
+    ("whisper encoder", 8, 1500, 1500, 12, 12, 64, "bfloat16", False, 0, True),
+    ("whisper decoder self", 8, 448, 448, 12, 12, 64, "bfloat16", True, 0,
+     False),
+    ("whisper cross", 8, 448, 1500, 12, 12, 64, "bfloat16", False, 0, True),
+    ("fp32", 1, 512, 512, 8, 2, 64, "float32", True, 0, True),
+    ("rows that see no key", 1, 256, 256, 8, 2, 64, "bfloat16", True, -64,
+     False),
+)
+# the train phase: llama3.2-1b at full width and depth, a repeated batch of
+# TRAIN_BATCH x TRAIN_SEQ tokens for TRAIN_STEPS steps; the last loss must
+# be below the first by TRAIN_DROP (PERF.md states the margin before the
+# run); the resume check at full width cut to RESUME_LAYERS layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_DROP = 4, 2048, 8, 1.0
+RESUME_LAYERS, RESUME_STEPS = 2, 4
+# a resumed run's losses against the uninterrupted run's, relative (the
+# restored state is bit-exact; the margin covers library kernels that may
+# sum in another order from one process to the next)
+RESUME_TOL = 1e-3
+# the fp32 two-layer cut, kernels against flash_attention_plain under
+# autograd: loss and every gradient leaf in relative Frobenius norm (fp32
+# sums in another order through two layers and the tied 128256-wide head)
+CUT_TOL = 1e-4
+# whisper-small training: batch, tokens, frames, steps
+WHISPER_TRAIN = (8, 448, 1500, 3)
+
+
+def bwd_work(q, k, causal, q_offset):
+    """(bytes, flops, peak rate) of one backward: q, k, v, o, dO and lse
+    read once, dq, dk and dv written once; the five products (S = q k^T
+    recomputed, dP = dO v^T, dV = P^T dO, dQ = dS k, dK = dS^T q) take 10 D
+    flops per visible (row, key) pair and head, counted for this call's
+    mask."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    pairs = (sum(max(0, min(s, q_offset + i + 1)) for i in range(t)) if causal
+             else t * s)
+    el = q.element_size()
+    nbytes = el * (6 * b * t * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * t
+    peak = BF16_OPS_PER_S if el == 2 else FP32_OPS_PER_S
+    return nbytes, 10 * d * hq * b * pairs, peak
+
+
+def bwd_faults(q, k, v, o, do, lse, ref, causal, q_offset):
+    """Three wrong backwards for ``grad_agreement`` to reject, made with the
+    plain version: D omitted (O = 0 makes D = rowsum(dO o O) = 0), the scale
+    dropped from dK, and each kv-head's gradients from its group's first
+    q-head only (when there is a group)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    kw = dict(causal=causal, q_offset=q_offset)
+    yield "D omitted", flash_attention_bwd_plain(q, k, v, torch.zeros_like(o),
+                                                 do, lse, **kw)
+    yield "scale dropped from dK", (ref[0], ref[1] * q.shape[-1] ** 0.5, ref[2])
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        _, dk1, dv1 = flash_attention_bwd_plain(
+            q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2), o,
+            do, lse, **kw)
+        yield "GQA sum over one head", (ref[0], dk1[:, :, ::group],
+                                        dv1[:, :, ::group])
+
+
+def bwd_readings(a):
+    """One line of a ``grad_agreement`` record."""
+    from repro_torch.kernels.flash_attention import GRAD_NAMES
+
+    return "; ".join(f"{n} worst {a[n]['worst']:.3f}, rel. Frobenius "
+                     f"{a[n]['rel_frob']:.2e}" for n in GRAD_NAMES)
+
+
+def flash_bwd_phase(torch, dev, gen):
+    """Hold the flash backward kernel against its plain version at every
+    training shape, with the planted faults; time it beside the plain
+    version, SDPA's backward (the yardstick) and the bound.  Returns a
+    record per case."""
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    print("flash_attention_bwd kernel checks (grad_agreement: fp32 1e-5 "
+          "relative Frobenius per gradient, bf16 2^-7; per element 1e-4 / "
+          "2^-6 of |ref| + row rms + 0.1 x the gradient's rms):", flush=True)
+    out = {}
+    for (what, b, t, s, hq, hkv, d, dt, causal, q_offset, timed) in BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        q, k, v, do = draw(b, t, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d), \
+            draw(b, t, hq, d)
+        kw = dict(causal=causal, q_offset=q_offset)
+        lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
+        o = fa._launch(q, k, v, instance=fa.choose_instance(q, k, v), lse=lse,
+                       **kw)
+        reset_launch_counts()
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        inst = "mma_sync" if dtype == torch.bfloat16 else "cuda_core"
+        require(launch_counts()["flash_attention_bwd"] == 1
+                and instance_counts()["flash_attention_bwd"][inst] == 1,
+                f"{what}: backward launches {launch_counts()}")
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+        require(all(bool(torch.isfinite(g).all()) for g in got),
+                f"{what}: non-finite gradient")
+        agree = fa.grad_agreement(got, ref)
+        require(agree["ok"], f"{what}: kernel != plain ({bwd_readings(agree)})")
+        if q_offset < 0:
+            require(not got[0][:, :-q_offset].any(),
+                    f"{what}: rows that see no key have nonzero dq")
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)),
+                f"{what}: a second launch gave other bits")
+        shape = (f"{dt} {'causal' if causal else 'non-causal'} q [{b},{t},{hq},"
+                 f"{d}], k and v [{b},{s},{hkv},{d}]"
+                 + (f", q_offset {q_offset}" if q_offset else ""))
+        print(f"  {what} {shape} [{inst}]: {bwd_readings(agree)}; the same "
+              f"bits twice", flush=True)
+        for fault, bad in bwd_faults(q, k, v, o, do, lse, ref, causal,
+                                     q_offset):
+            a = fa.grad_agreement(bad, ref)
+            require(not a["ok"], f"{what}: the check accepts a planted fault "
+                    f"({fault}: {bwd_readings(a)})")
+            worst = max(a[n]["rel_frob"] for n in fa.GRAD_NAMES)
+            print(f"    control, {fault}: rejected (worst rel. Frobenius "
+                  f"{worst:.3e})", flush=True)
+        nbytes, flops, peak = bwd_work(q, k, causal, q_offset)
+        bms, by = bound(nbytes, flops, peak)
+        rec = {"shape": shape, "instance": inst, "bound_ms": bms,
+               "bound_by": by, "max_abs_err": max(agree[n]["max_abs_err"]
+                                                  for n in fa.GRAD_NAMES),
+               "rel_frob": {n: agree[n]["rel_frob"] for n in fa.GRAD_NAMES}}
+        if timed:
+            rec["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, do, lse, **kw), 10)
+            rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse, **kw), 2)
+            if q_offset == 0:
+                # SDPA's backward on the same q and dO, k and v repeated to
+                # the q-heads outside the timing (its GQA backward may not
+                # take the fused kernels): the kernel's work, head for head
+                group = hq // hkv
+                qs, ks, vs = (x.detach().transpose(1, 2).contiguous()
+                              .requires_grad_() for x in (
+                                  q, k.repeat_interleave(group, 2),
+                                  v.repeat_interleave(group, 2)))
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal)
+                lib_do = do.transpose(1, 2).contiguous()
+                rec["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (qs, ks, vs), lib_do, retain_graph=True), 10)
+                del qs, ks, vs, lib_out, lib_do
+            else:
+                rec["library_ms"] = None
+            lib = (f", SDPA backward {rec['library_ms']:.4f} ms"
+                   if rec["library_ms"] is not None else "")
+            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                  f"ms{lib}, bound {bms:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB): {100 * bms / rec['ms']:.1f} % of the "
+                  f"bound", flush=True)
+        out[what] = rec
+        del q, k, v, do, o, lse, got, ref, again
+        torch.cuda.empty_cache()
+    print(f"flash backward phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+class RepeatedBatch:
+    """One batch of a :class:`~repro_torch.data.pipeline.SyntheticTokens`
+    stream, repeated at every step (a loss that must fall)."""
+
+    def __init__(self, tokens):
+        self.host = tokens.batch_np(0)
+
+    def batch_np(self, step):
+        return self.host
+
+
+def train_phase(torch, np, dev, seed):
+    """Train llama3.2-1b at full width and depth on a repeated batch; an
+    exact-step resume at a two-layer cut; the fp32 two-layer cut against
+    plain attention under autograd; whisper-small at full width; the
+    refusals.  Returns the records of the report."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import jamba as jb
+    from repro_torch.models import rwkv as rw
+    from repro_torch.models import transformer as tr
+    from repro_torch.models import whisper as wh
+    from repro_torch.train.step import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-1b")
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+             cfg.dtype, cfg.remat)
+            == (N_LAYERS, D_MODEL, N_HEADS, N_KV, HEAD_DIM, 8192, VOCAB, True,
+                "bfloat16", True), f"llama3.2-1b config changed: {cfg}")
+    tc = TrainConfig(peak_lr=3e-4, warmup=0, stable=10_000, decay=1_000,
+                     seq_chunk=512)
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed)
+    print(f"train: {cfg.name} at its published config ({cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+          f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab} tied, "
+          f"{cfg.dtype}, remat per layer); AdamW in fp32 ({tc}); one batch of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens from seed {seed}, repeated for "
+          f"{TRAIN_STEPS} steps", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain0 = fa.flash_attention_plain.calls
+    history = []
+    reset_launch_counts()
+    params, opt_state, losses = train_loop(
+        cfg, tc, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        ckpt_dir=None, log_every=1, seed=seed, device=dev,
+        data=RepeatedBatch(tokens), history=history)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    inst = instance_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    require({k: counts[k] for k in want} == want
+            and sum(counts.values()) == sum(want.values()),
+            f"llama train: launch counts {counts}, want {want} (16 forward "
+            f"launches, 16 more in remat's recompute and 16 backward a step)")
+    require(inst["flash_attention"]["wgmma"] == want["flash_attention"]
+            and inst["flash_attention_bwd"]["mma_sync"]
+            == want["flash_attention_bwd"],
+            f"llama train: instances {inst}")
+    require(fa.flash_attention.lse_launches == want["flash_attention"],
+            f"llama train: {fa.flash_attention.lse_launches} forward launches "
+            f"wrote lse")
+    require(fa.flash_attention_plain.calls == plain0,
+            "llama train: plain attention ran on the card")
+    require(all(np.isfinite([h["loss"], h["gnorm"]]).all() for h in history),
+            "llama train: a non-finite loss or gradient norm")
+    drop = losses[0] - losses[-1]
+    require(drop >= TRAIN_DROP, f"llama train: the loss fell by {drop:.3f}, "
+            f"less than {TRAIN_DROP} ({losses})")
+    steady = [h["s"] for h in history[1:]]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    for h in history:
+        print(f"  step {h['step']}: loss {h['loss']:.4f}, lr {h['lr']:.2e}, "
+              f"gnorm {h['gnorm']:.4f}, {1e3 * h['s']:.1f} ms", flush=True)
+    print(f"  {n_params / 1e9:.3f} B parameters; {step_ms:.1f} ms per step over "
+          f"steps 1..{TRAIN_STEPS - 1} ({tok_s:.0f} tokens/s; step 0 "
+          f"{1e3 * history[0]['s']:.1f} ms); peak memory {peak / 2**30:.2f} GiB; "
+          f"the loss fell by {drop:.3f} (the check: at least {TRAIN_DROP}); per "
+          f"step {want['flash_attention'] // TRAIN_STEPS} flash forward "
+          f"launches (wgmma, lse written) and "
+          f"{want['flash_attention_bwd'] // TRAIN_STEPS} backward (mma_sync), "
+          f"no plain attention", flush=True)
+    llama = {"step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
+             "losses": losses, "history": history, "n_params": n_params,
+             "launches": counts["flash_attention_bwd"],
+             "forward_launches": counts["flash_attention"]}
+    # where one more step's device time goes (the counters were read above)
+    step_fn = make_train_step(cfg, tc)
+    batch = tokens.batch(0, device=dev)
+    device_share(torch, f"llama3.2-1b train step [{TRAIN_BATCH},{TRAIN_SEQ}]",
+                 lambda: step_fn(params, opt_state, batch), "flash", top=12)
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+
+    # ---- exact-step resume through CheckpointManager, two layers, full width
+    cut = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    whole_p, _, whole = train_loop(cut, tc, steps=RESUME_STEPS,
+                                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                   ckpt_dir=None, log_every=100, seed=seed,
+                                   device=dev)
+    half = RESUME_STEPS // 2
+    first_p, first_opt, first = train_loop(
+        cut, tc, steps=half, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        ckpt_dir=ckpt, ckpt_every=half, log_every=100, seed=seed, device=dev)
+    mgr = CheckpointManager(ckpt)
+    require(mgr.all_steps() == [half], f"resume: checkpoints {mgr.all_steps()}")
+    like_p, like_opt = init_train_state(cut, tc, seed + 1, device=dev)
+    back = mgr.restore(half, {"params": like_p, "opt": like_opt})
+    exact = (all(torch.equal(p, q) for p, q in zip(
+        back["params"].parameters(), first_p.parameters(), strict=True))
+        and int(back["opt"].step) == int(first_opt.step) == half
+        and all(torch.equal(back["opt"].mu[k], first_opt.mu[k])
+                and torch.equal(back["opt"].nu[k], first_opt.nu[k])
+                for k in first_opt.mu))
+    require(exact, "resume: the restored state differs from the saved one")
+    del like_p, like_opt, back, first_p, first_opt
+    resumed_p, _, rest = train_loop(
+        cut, tc, steps=RESUME_STEPS, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, ckpt_dir=ckpt, log_every=100, seed=seed, device=dev)
+    both = first + rest
+    rel = max(abs(a - b) / abs(b) for a, b in zip(both, whole, strict=True))
+    require(len(both) == len(whole) and rel <= RESUME_TOL,
+            f"resume: losses {both} against the uninterrupted {whole}")
+    with torch.no_grad():
+        wdiff = max(float((p.float() - q.float()).abs().max()) for p, q in zip(
+            resumed_p.parameters(), whole_p.parameters(), strict=True))
+    ck_bytes = sum(os.path.getsize(os.path.join(ckpt, f"step_{s:08d}",
+                                                "arrays.npz"))
+                   for s in mgr.all_steps())
+    print(f"  resume ({RESUME_LAYERS} layers at full width): uninterrupted "
+          f"losses {[round(x, 4) for x in whole]}, saved at step {half} and "
+          f"resumed {[round(x, 4) for x in both]}: max relative difference "
+          f"{rel:.2e} (limit {RESUME_TOL}); the restored state equal to the "
+          f"saved one bit for bit; the final weights differ by at most "
+          f"{wdiff:.3e}; {ck_bytes / 1e9:.2f} GB in {len(mgr.all_steps())} "
+          f"checkpoints; {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    resume = {"losses": whole, "resumed": both, "max_rel": rel,
+              "weights_max_abs": wdiff}
+    del whole_p, resumed_p
+    torch.cuda.empty_cache()
+
+    # ---- fp32 two-layer cut: the kernels against plain attention, autograd
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    p32 = tr.init_params(cut32, seed, device=dev).requires_grad_(True)
+    named = dict(p32.named_parameters())
+    host = SyntheticTokens(vocab=cfg.vocab, seq_len=1024, global_batch=2,
+                           seed=seed).batch(0, device=dev)
+
+    def loss_and_grads():
+        loss = tr.loss_fn(cut32, p32, host["tokens"], host["targets"])
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return float(loss.detach()), grads
+
+    reset_launch_counts()
+    got_loss, got = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts["flash_attention"] == 2 * RESUME_LAYERS
+            and counts["flash_attention_bwd"] == RESUME_LAYERS
+            and instance_counts()["flash_attention_bwd"]["cuda_core"]
+            == RESUME_LAYERS, f"fp32 cut: launches {counts}")
+    kernel_attn = tr.attention_chunked
+    tr.attention_chunked = lambda q, k, v, causal: fa.flash_attention_plain(
+        q, k, v, causal=causal)
+    try:
+        want_loss, want = loss_and_grads()
+    finally:
+        tr.attention_chunked = kernel_attn
+    errs = {n: float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for n, g, w in zip(named, got, want, strict=True)}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    require(loss_rel <= CUT_TOL and errs[worst] <= CUT_TOL,
+            f"fp32 cut: loss {got_loss} against {want_loss}, gradient {worst} "
+            f"off by {errs[worst]:.3e}")
+    print(f"  fp32 cut ({RESUME_LAYERS} layers, full width, [2,1024]): loss "
+          f"{got_loss:.6f} with the kernels, {want_loss:.6f} with plain "
+          f"attention under autograd (relative {loss_rel:.2e}); worst gradient "
+          f"{worst} at {errs[worst]:.2e} relative Frobenius (limit {CUT_TOL}); "
+          f"{counts['flash_attention']} forward and "
+          f"{counts['flash_attention_bwd']} backward launches (cuda_core)",
+          flush=True)
+    cut_rec = {"loss_rel": loss_rel, "worst_grad": worst,
+               "worst_rel_frob": errs[worst]}
+    del p32, named, got, want
+    torch.cuda.empty_cache()
+
+    # ---- whisper-small at full width and depth
+    wcfg = get_config("whisper-small")
+    b, t, frames, steps = WHISPER_TRAIN
+    wtc = TrainConfig(peak_lr=3e-4, warmup=0, seq_chunk=512)
+    wparams, wstate = init_train_state(wcfg, wtc, seed, device=dev)
+    step_fn = make_train_step(wcfg, wtc)
+    batch = SyntheticTokens(vocab=wcfg.vocab, seq_len=t, global_batch=b,
+                            seed=seed).batch(0, device=dev)
+    batch["embeds"] = torch.randn((b, frames, wcfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev).to(getattr(torch, wcfg.dtype))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, wlosses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        wparams, wstate, m = step_fn(wparams, wstate, batch)
+        wlosses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(np.isfinite(wlosses[-1]) and np.isfinite(float(m["gnorm"])),
+                "whisper train: a non-finite loss or gradient norm")
+    counts = launch_counts()
+    per_step = wcfg.n_enc_layers + 2 * wcfg.n_layers
+    require(counts["flash_attention"] == 2 * per_step * steps
+            and counts["flash_attention_bwd"] == per_step * steps
+            and sum(counts.values()) == 3 * per_step * steps,
+            f"whisper train: launch counts {counts}")
+    wpeak = torch.cuda.max_memory_allocated()
+    print(f"  whisper-small ({wcfg.n_enc_layers} + {wcfg.n_layers} layers, d "
+          f"{wcfg.d_model}, {wcfg.dtype}): batch {b} x {t} tokens on {frames} "
+          f"frames, {steps} steps: {[round(x, 1) for x in times]} ms, losses "
+          f"{[round(x, 4) for x in wlosses]}; per step {2 * per_step} flash "
+          f"forward and {per_step} backward launches (encoder non-causal, "
+          f"decoder causal, cross T != S); peak memory {wpeak / 2**30:.2f} GiB",
+          flush=True)
+    whisper = {"step_ms": min(times[1:]), "losses": wlosses,
+               "peak_gib": wpeak / 2**30}
+    device_share(torch, f"whisper-small train step [{b},{t}] on {frames} frames",
+                 lambda: step_fn(wparams, wstate, batch), "flash", top=12)
+    del wparams, wstate, batch
+    torch.cuda.empty_cache()
+
+    # ---- the refusals: rwkv's WKV and jamba's scan have no backward kernel
+    for arch, model in (("rwkv6-1.6b", rw), ("jamba-v0.1-52b", jb)):
+        rcfg = reduced(get_config(arch))
+        rp = model.init_params(rcfg, seed, device=dev).requires_grad_(True)
+        tok = torch.zeros((1, 32), dtype=torch.long, device=dev)
+        try:
+            model.loss_fn(rcfg, rp, tok, tok)
+        except NotImplementedError as e:
+            require("item 15" in str(e), f"{arch}: refusal without its item: {e}")
+            print(f"  {arch} loss_fn under grad on the card refuses: {e}",
+                  flush=True)
+        else:
+            raise SmokeFailure(f"{arch}: loss_fn under grad ran on the card")
+        with torch.no_grad():
+            model.loss_fn(rcfg, rp, tok, tok)   # without autograd it runs
+        del rp
+    out = {"llama": llama, "resume": resume, "cut": cut_rec, "whisper": whisper,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"train phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def planted_faults(q, k, v, ref, *, causal, q_offset):
     """Two wrong outputs for the check against the plain version to reject,
     made with the plain version: the softmax scale off by 1 %, and the last
@@ -1884,6 +2373,7 @@ def serve_phase(torch, np, dev, seed, hold_flash):
         launch_counts,
         reset_launch_counts,
     )
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models import layers
     from repro_torch.models import transformer as tr
@@ -1947,10 +2437,14 @@ def serve_phase(torch, np, dev, seed, hold_flash):
         require(counts == {"modmatmul_batched": 0, "modmatmul": 0,
                            "polyeval": 0,
                            "flash_attention": cfg.n_layers * prefills,
+                           "flash_attention_bwd": 0,
                            "rwkv6": 0, "ring_fold": 0,
                            "selective_scan": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
+        require(fa_mod.flash_attention.lse_launches == 0,
+                f"{what}: {fa_mod.flash_attention.lse_launches} serve launches "
+                f"wrote the log-sum-exp (a training output)")
         inst = instance_counts()["flash_attention"]
         require(inst == {"wgmma": cfg.n_layers * prefills, "mma_sync": 0,
                          "cuda_core": 0},
@@ -2461,7 +2955,8 @@ def main(argv=None):
         require(blocks == MAIN_BLOCKS, f"{what}: {blocks} blocks != {MAIN_BLOCKS}")
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
                            "polyeval": 4 * MAIN_BLOCKS, "flash_attention": 0,
-                           "rwkv6": 0, "ring_fold": 0, "selective_scan": 0},
+                           "flash_attention_bwd": 0, "rwkv6": 0,
+                           "ring_fold": 0, "selective_scan": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
         require(inst == {"tensor_core": MAIN_BLOCKS, "skinny": 0,
@@ -2585,7 +3080,8 @@ def main(argv=None):
     tags_counts = launch_counts()
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
                             "polyeval": 0, "flash_attention": 0,
-                            "rwkv6": 0, "ring_fold": 0, "selective_scan": 0},
+                            "flash_attention_bwd": 0, "rwkv6": 0,
+                            "ring_fold": 0, "selective_scan": 0},
             f"tags stage launch counts {tags_counts}")
     require(instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
                                                "cuda_core": 0},
@@ -2642,6 +3138,10 @@ def main(argv=None):
     scan_rec = scan_phase(torch, dev, gen)
     jamba_rec = jamba_phase(torch, np, dev, args.seed, hold_flash)
     whisper_rec = whisper_phase(torch, np, dev, args.seed, hold_flash)
+
+    # ----------- training: the flash backward kernel, then the train phase
+    bwd_rec = flash_bwd_phase(torch, dev, gen)
+    train_rec = train_phase(torch, np, dev, args.seed)
 
     # ------------------------------------------------------------ report
 
@@ -2833,6 +3333,31 @@ def main(argv=None):
         "other_shapes": {f"{bb}x{tt}": {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "max_abs_err")}
             for (bb, tt), r in scan_rec.items() if (bb, tt) != (b, t)}})
+    main_bwd = bwd_rec[BWD_CASES[0][0]]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:68 (the XLA autodiff of "
+                    "attention_chunked, through which the reference trains; "
+                    "no Pallas kernel has a backward)",
+        "launches": train_rec["llama"]["launches"],
+        "max_abs_err": main_bwd["max_abs_err"], "ms": main_bwd["ms"],
+        "plain_ms": main_bwd["plain_ms"], "bound_ms": main_bwd["bound_ms"],
+        "bound_by": main_bwd["bound_by"], "library_ms": main_bwd["library_ms"],
+        "shape": main_bwd["shape"], "instance": main_bwd["instance"],
+        "path": f"llama3.2-1b training, {TRAIN_STEPS} steps: 16 a step "
+                f"(forward launches {train_rec['llama']['forward_launches']}, "
+                f"lse written)",
+        "other_shapes": {what: {k: r.get(k) for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+            for what, r in bwd_rec.items() if what != BWD_CASES[0][0]}})
+    llama_train = train_rec["llama"]
+    print(json.dumps({"train": {
+        "llama3.2-1b": {k: llama_train[k] for k in (
+            "step_ms", "tokens_per_s", "peak_gib", "losses", "n_params")},
+        "resume": train_rec["resume"], "fp32_cut": train_rec["cut"],
+        "whisper-small": train_rec["whisper"],
+        "phase_s": train_rec["phase_s"]}}))
     print(json.dumps({"jamba": {k: jamba_rec[k] for k in (
         "times", "peak_gib", "n_params", "phase_s")}, "whisper": {
         k: whisper_rec[k] for k in ("times", "peak_gib", "n_params",

@@ -5,7 +5,8 @@
 * :mod:`.modmatmul` — batched and single ``(A @ B) mod p``;
 * :mod:`.polyeval` — skinny-K ``(V @ T) mod p`` share evaluation;
 * :mod:`.flash_attention` — GQA softmax attention (the serve path's
-  prefill);
+  prefill, and training's forward) and its backward
+  (``flash_attention_bwd``: dq, dk and dv, training's backward);
 * :mod:`.rwkv6` — the RWKV-6 WKV recurrence with its final state (the
   rwkv family's prefill);
 * :mod:`.ring_fold` — ``(acc + chunk) mod p``, one hop of the sharded
@@ -19,7 +20,10 @@
 wrappers' launch counters, so a run can show which kernels it went through;
 :func:`instance_counts` splits them by the instance each wrapper's chooser
 picked (``modmatmul*``: ``tensor_core``, ``skinny`` or ``cuda_core``;
-``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``).
+``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``;
+``flash_attention_bwd``: ``mma_sync`` or ``cuda_core``).  The counters
+also zero ``flash_attention.lse_launches``, the forward launches that
+wrote the log-sum-exp for a backward (0 on the serve path).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ WRAPPERS = {
     "modmatmul": _modmatmul.modmatmul,
     "polyeval": _polyeval.polyeval,
     "flash_attention": _flash_attention.flash_attention,
+    "flash_attention_bwd": _flash_attention.flash_attention_bwd,
     "rwkv6": _rwkv6.rwkv6,
     "ring_fold": _ring_fold.ring_fold,
     "selective_scan": _selective_scan.selective_scan,
@@ -60,3 +65,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "instances"):
             fn.instances = dict.fromkeys(fn.instances, 0)
+    _flash_attention.flash_attention.lse_launches = 0

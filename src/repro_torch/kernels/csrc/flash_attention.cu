@@ -13,7 +13,11 @@
 // causal, sees keys j <= q_offset + i.  The running max, the running sum and
 // the output accumulator are fp32; the output is written in the input's
 // type.  A row that sees no key at all is written as 0 (the TPU kernel's
-// l == 0 guard).
+// l == 0 guard).  When the caller passes an fp32 buffer lse [B, Hq, T]
+// (the training forward), each row's log-sum-exp of its scaled logits,
+// m + log l, is written there too, +inf for a row that sees no key, for
+// the backward kernels (flash_attention_bwd.cu) to recompute P from; the
+// serve path passes null and nothing more is written.
 //
 // Design.  The TPU kernel walks the kv blocks as a sequential grid axis and
 // keeps the output tile and its softmax statistics resident in VMEM.  Hopper
@@ -88,6 +92,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;  // q rows per block
 constexpr int BK = 64;  // kv rows per tile
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, t, h;  // elements between batches, rows, heads
@@ -159,9 +164,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int D, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int Tq,
-                      int S, int group, Strides qs, Strides ks, Strides vs,
-                      Strides os, int causal, int q_offset, float scale) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int S, int group,
+                      Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                      int q_offset, float scale) {
   constexpr int DP = D + 8;   // padded row: fragment reads hit 32 banks
   constexpr int DC = D / 8;   // 8-wide chunks of a row; n-tiles of O
   constexpr int KC = D / 16;  // k steps of S = q k^T
@@ -307,6 +313,9 @@ __global__ void __launch_bounds__(THREADS)
     const int gq = q0 + r0 + 8 * rr;
     if (gq >= Tq) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    if (lse != nullptr && t4 == 0)  // m is in log2 units
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + gq] =
+          sum > 0.f ? (m[rr] + log2f(sum)) * LN2 : INFINITY;
     bf16* orow = o + b * os.b + gq * os.t + h * os.h;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -316,10 +325,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int D, bool VEC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-           int S, int Hq, int group, const Strides& qs, const Strides& ks,
-           const Strides& vs, const Strides& os, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tq, int S, int Hq, int group, const Strides& qs,
+           const Strides& ks, const Strides& vs, const Strides& os, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_bf16_kernel<D, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -328,8 +337,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
   const dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Tq, S, group, qs, ks,
-      vs, os, causal, q_offset, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Tq, S, group, qs,
+      ks, vs, os, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,9 +371,10 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, int Tq,
-                      int S, int group, Strides qs, Strides ks, Strides vs,
-                      Strides os, int causal, int q_offset, float scale) {
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int S, int group,
+                      Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                      int q_offset, float scale) {
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float4 smem_fp[];
   float* Qs = reinterpret_cast<float*>(smem_fp);  // Qs[d * PAD + r]
@@ -496,6 +506,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < 4; ++i) {
     const int gq = q0 + ty * 4 + i;
     if (gq >= Tq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + gq] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     float* orow = o + b * os.b + gq * os.t + h * os.h + tx * DC;
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[c] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
@@ -503,10 +516,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-           int S, int Hq, int group, const Strides& qs, const Strides& ks,
-           const Strides& vs, const Strides& os, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tq, int S, int Hq, int group, const Strides& qs,
+           const Strides& ks, const Strides& vs, const Strides& os, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_fp32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -515,8 +528,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
   const dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Tq, S, group, qs,
-      ks, vs, os, causal, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, S, group,
+      qs, ks, vs, os, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,9 +751,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       bf16* __restrict__ o, int Tq, int S, int group,
-                       Strides os, uint32_t qord, uint32_t kord, uint32_t vord,
-                       int causal, int q_offset, float scale) {
+                       bf16* __restrict__ o, float* __restrict__ lse, int Tq,
+                       int S, int group, Strides os, uint32_t qord,
+                       uint32_t kord, uint32_t vord, int causal, int q_offset,
+                       float scale) {
   using G = Geometry<D>;
   constexpr int SW = G::SW;
   extern __shared__ uint8_t smem_fa[];
@@ -852,6 +866,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int gq = c.qrow + 8 * rr;
     if (gq >= Tq) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    if (lse != nullptr && c.t4 == 0)  // m is in log2 units
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Tq + gq] =
+          sum > 0.f ? (c.m[rr] + log2f(sum)) * LN2 : INFINITY;
     bf16* orow = o + b * os.b + gq * os.t + h * os.h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -894,8 +911,8 @@ bool operand_map(CUtensorMap* map, uint32_t* order, const void* base, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
-           int S, int Hq, int Hkv, int group, const Strides& qs,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tq, int S, int Hq, int Hkv, int group, const Strides& qs,
            const Strides& ks, const Strides& vs, const Strides& os, int causal,
            int q_offset, float scale, cudaStream_t stream) {
   using G = Geometry<D>;
@@ -912,8 +929,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + BQW - 1) / BQW, Hq, B);
   kernel<<<grid, THREADS, G::SMEM, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), Tq, S, group, os, qord, kord, vord,
-      causal, q_offset, scale);
+      qm, km, vm, static_cast<bf16*>(o), lse, Tq, S, group, os, qord, kord,
+      vord, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -931,27 +948,27 @@ bool aligned8(const void* p, const Strides& s) {
 // every operand 16-byte aligned (the wrapper's choose_instance decides)
 template <int D>
 int dispatch(int instance, const void* q, const void* k, const void* v,
-             void* o, int B, int Tq, int S, int Hq, int Hkv, int group,
+             void* o, float* lse, int B, int Tq, int S, int Hq, int Hkv, int group,
              const Strides& qs, const Strides& ks, const Strides& vs,
              const Strides& os, int causal, int q_offset, float scale,
              cudaStream_t st) {
   const bool aligned = aligned8(q, qs) && aligned8(k, ks) && aligned8(v, vs);
   switch (instance) {
     case 0:
-      return cuda_core::launch<D>(q, k, v, o, B, Tq, S, Hq, group, qs, ks, vs,
-                                  os, causal, q_offset, scale, st);
+      return cuda_core::launch<D>(q, k, v, o, lse, B, Tq, S, Hq, group, qs, ks,
+                                  vs, os, causal, q_offset, scale, st);
     case 1:
       if (aligned)
-        return tensor_core::launch<D, true>(q, k, v, o, B, Tq, S, Hq, group, qs,
-                                            ks, vs, os, causal, q_offset, scale,
-                                            st);
-      return tensor_core::launch<D, false>(q, k, v, o, B, Tq, S, Hq, group, qs,
-                                           ks, vs, os, causal, q_offset, scale,
-                                           st);
+        return tensor_core::launch<D, true>(q, k, v, o, lse, B, Tq, S, Hq, group,
+                                            qs, ks, vs, os, causal, q_offset,
+                                            scale, st);
+      return tensor_core::launch<D, false>(q, k, v, o, lse, B, Tq, S, Hq, group,
+                                           qs, ks, vs, os, causal, q_offset,
+                                           scale, st);
     case 2:
       if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
-      return wgmma_tc::launch<D>(q, k, v, o, B, Tq, S, Hq, Hkv, group, qs, ks,
-                                 vs, os, causal, q_offset, scale, st);
+      return wgmma_tc::launch<D>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group, qs,
+                                 ks, vs, os, causal, q_offset, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -967,9 +984,11 @@ int dispatch(int instance, const void* q, const void* k, const void* v,
 // dim without an instance (32, 64, 128), an unknown instance, wgmma
 // operands that are not 16-byte aligned or whose tensor map CUDA
 // refuses, a head count that is not a multiple of the kv heads, or a grid
-// too large.
+// too large.  `lse` is null (serving) or an fp32 [B, Hq, Tq] buffer for each
+// row's log-sum-exp (training).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int instance, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int instance, int B,
     int Tq, int S, int Hq, int Hkv, int D, long long qsb, long long qst,
     long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
     long long vst, long long vsh, long long osb, long long ost, long long osh,
@@ -982,10 +1001,11 @@ extern "C" int flash_attention_launch(
       os{osb, ost, osh};
   auto st = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
+  float* l = static_cast<float*>(lse);
   switch (D) {
-    case 32: return dispatch<32>(instance, q, k, v, o, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
-    case 64: return dispatch<64>(instance, q, k, v, o, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
-    case 128: return dispatch<128>(instance, q, k, v, o, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
+    case 32: return dispatch<32>(instance, q, k, v, o, l, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
+    case 64: return dispatch<64>(instance, q, k, v, o, l, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
+    case 128: return dispatch<128>(instance, q, k, v, o, l, B, Tq, S, Hq, Hkv, group, qs, ks, vs, os, causal, q_offset, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,6 +29,20 @@ The wrapper checks its operands, allocates the output with
 CPU tensor takes the plain version (:func:`flash_attention_plain`, which
 counts its calls in ``flash_attention_plain.calls``); a CUDA tensor
 launches the chosen kernel or raises: nothing falls back.
+
+Training.  When autograd records (grad enabled and an operand that
+requires grad), :func:`flash_attention` runs through
+:class:`FlashAttention`: the forward launch also writes each row's
+log-sum-exp (``lse [B, Hq, T]``, fp32; counted in
+``flash_attention.lse_launches``, which the serve path leaves at 0), and
+the backward is :func:`flash_attention_bwd`, the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` (``mma_sync`` for bf16, ``cuda_core`` for
+fp32; launches in ``flash_attention_bwd.launches`` and ``.instances``),
+which replace the XLA autodiff of the reference's ``attention_chunked``.
+On the CPU both directions take their plain versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`).
+:func:`grad_agreement` holds the backward kernel against its plain
+version.
 """
 from __future__ import annotations
 
@@ -58,6 +72,22 @@ FP32_TOL = 2e-5
 BF16_ELEMENT_TOL = 2.0 ** -6
 BF16_FROBENIUS_TOL = 2.0 ** -8
 
+# The backward kernel against its plain version (see :func:`grad_agreement`),
+# per gradient.  An element is held to a share of |ref| plus its row's rms
+# over D plus a tenth of the whole gradient's rms: where the exact gradient
+# of a row cancels to 0 (a causal row 0 sees one key, so its dS = dP - D =
+# 0), both versions are left with rounding noise and the row has no scale
+# of its own.  fp32: 1e-4 per element and 1e-5 in relative Frobenius norm
+# (sums in another order).  bf16: the kernel rounds P and dS to bf16 for
+# the products and each gradient to bf16 at the end, so 2^-6 per element
+# and 2^-7 in relative Frobenius norm.
+GRAD_FP32_FROBENIUS_TOL = 1e-5
+GRAD_FP32_ELEMENT_TOL = 1e-4
+GRAD_BF16_ELEMENT_TOL = 2.0 ** -6
+GRAD_BF16_FROBENIUS_TOL = 2.0 ** -7
+GRAD_FLOOR = 0.1
+GRAD_NAMES = ("dq", "dk", "dv")
+
 
 def agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
     """How far ``got`` lies from ``ref``, the plain version's output on the
@@ -83,42 +113,140 @@ def agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "rel_frob": rel_frob, "ok": worst <= 1.0 and rel_frob <= frob_tol}
 
 
+def grad_agreement(got, ref) -> dict:
+    """How far the backward's ``got = (dq, dk, dv)`` lies from ``ref``, the
+    plain version's on the same operands: per gradient ``max_abs_err``,
+    ``worst`` (the largest element error over its limit), ``rel_frob`` and
+    ``ok`` (within the limits above for ref's dtype), and ``ok`` over all
+    three."""
+    out = {}
+    for name, g, r in zip(GRAD_NAMES, got, ref, strict=True):
+        gf, rf = g.float(), r.float()
+        err = (gf - rf).abs()
+        if not err.numel():
+            out[name] = {"max_abs_err": 0.0, "worst": 0.0, "rel_frob": 0.0,
+                         "ok": True}
+            continue
+        scale = (rf.abs() + rf.pow(2).mean(dim=-1, keepdim=True).sqrt()
+                 + GRAD_FLOOR * rf.pow(2).mean().sqrt())
+        if r.dtype == torch.bfloat16:
+            limit = GRAD_BF16_ELEMENT_TOL * scale
+            frob_tol = GRAD_BF16_FROBENIUS_TOL
+        else:
+            limit = GRAD_FP32_ELEMENT_TOL * scale
+            frob_tol = GRAD_FP32_FROBENIUS_TOL
+        # an exact 0 passes a 0 limit (rows that see no key); NaN fails
+        ratio = torch.where(err == 0, torch.zeros_like(err), err / limit)
+        worst = float(ratio.max())
+        norm = float(rf.norm())
+        rel_frob = float(err.norm()) / norm if norm else float(err.norm())
+        out[name] = {"max_abs_err": float(err.max()), "worst": worst,
+                     "rel_frob": rel_frob,
+                     "ok": worst <= 1.0 and rel_frob <= frob_tol}
+    out["ok"] = all(out[name]["ok"] for name in GRAD_NAMES)
+    return out
+
+
+def _visible(t: int, s: int, causal: bool, q_offset: int, device):
+    """``[T, S]`` bool: which keys each query row sees."""
+    if not causal:
+        return torch.ones((t, s), dtype=torch.bool, device=device)
+    q_pos = q_offset + torch.arange(t, device=device)[:, None]
+    return q_pos >= torch.arange(s, device=device)[None, :]
+
+
+def _heads_first(x: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """``[B, T, H, D]`` as fp32 ``[B, H * group, T, D]``, each head
+    repeated ``group`` times (GQA's kv heads against the q heads)."""
+    x = x.float()
+    if group > 1:
+        x = x.repeat_interleave(group, dim=2)
+    return x.transpose(1, 2)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, q_offset: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """The plain version: materialised softmax attention in fp32 with GQA
     and the causal mask ``q_offset + i >= j`` (``attention_direct``'s
     semantics), on any device.  A row that sees no key is 0, as in the
-    kernel."""
+    kernel.  With ``return_lse`` also each row's log-sum-exp of its scaled
+    logits, ``[B, Hq, T]`` fp32, +inf for a row that sees no key (the
+    kernel's training output)."""
     flash_attention_plain.calls += 1
+    t, hq, d = q.shape[1], q.shape[2], q.shape[3]
+    s, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    group = hq // hkv
+    qf, kf, vf = _heads_first(q), _heads_first(k, group), _heads_first(v, group)
+    logits = (qf @ kf.transpose(-1, -2)) * scale                  # [B,Hq,T,S]
+    visible = _visible(t, s, causal, q_offset, q.device)
+    seen = visible.any(-1)                                        # [T]
+    if causal:
+        logits = logits.masked_fill(~visible, NEG_INF)
+        probs = torch.softmax(logits, dim=-1) * seen[:, None]
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = (probs @ vf).transpose(1, 2).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1).masked_fill(~seen, float("inf"))
+    return out, lse
+
+
+flash_attention_plain.calls = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              q_offset: int = 0,
+                              scale: Optional[float] = None):
+    """The plain version of the backward: ``(dq, dk, dv)`` in q's dtype by
+    the kernel's recompute formulas in fp32, on any device.  ``P = exp(S
+    scale - lse)`` on the visible pairs, ``D = rowsum(dO o O)``, ``dV =
+    P^T dO``, ``dS = P o (dO V^T - D)``, ``dQ = dS K scale``, ``dK = dS^T Q
+    scale``, dK and dV summed over each kv-head's group of q-heads."""
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     group = hq // hkv
-    qf = q.float().transpose(1, 2)                                # [B,Hq,T,D]
-    kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)  # [B,Hq,S,D]
-    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    qf, kf, vf = _heads_first(q), _heads_first(k, group), _heads_first(v, group)
+    of, dof = _heads_first(o), _heads_first(do)
     logits = (qf @ kf.transpose(-1, -2)) * scale                  # [B,Hq,T,S]
-    if causal:
-        q_pos = q_offset + torch.arange(t, device=q.device)[:, None]
-        visible = q_pos >= torch.arange(s, device=q.device)[None, :]
-        logits = logits.masked_fill(~visible, NEG_INF)
-        probs = torch.softmax(logits, dim=-1) * visible.any(-1)[:, None]
-    else:
-        probs = torch.softmax(logits, dim=-1)
-    return (probs @ vf).transpose(1, 2).to(q.dtype)
+    visible = _visible(t, s, causal, q_offset, q.device)
+    p = torch.where(visible, torch.exp(logits - lse.float()[..., None]), 0.0)
+    dv = p.transpose(-1, -2) @ dof                                # [B,Hq,S,D]
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
 
+    def kv_grad(x):     # the group's q-heads summed onto their kv-head
+        return x.reshape(b, hkv, group, s, d).sum(2).transpose(1, 2)
 
-flash_attention_plain.calls = 0
+    return (dq.transpose(1, 2).to(q.dtype), kv_grad(dk).to(q.dtype),
+            kv_grad(dv).to(q.dtype))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,28 +300,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q: [B, T, Hq, D]``, ``k, v: [B, S, Hkv, D]``, fp32 or bf16, on one
     device; ``scale`` defaults to ``D ** -0.5``.  On the card the head dim
     must be 32, 64 or 128 and D must have unit stride; the other strides
-    are read as they are.
+    are read as they are.  Differentiable: under autograd it runs through
+    :class:`FlashAttention`, whose backward is :func:`flash_attention_bwd`.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                     scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, q_offset, scale)
+    return _forward(q, k, v, causal=causal, q_offset=q_offset, scale=scale)[0]
+
+
+def _forward(q, k, v, *, causal: bool, q_offset: int, scale: Optional[float],
+             with_lse: bool = False):
+    """``(out, lse or None)``: the plain version on the CPU, else the
+    chosen kernel, counted (and in ``lse_launches`` when it writes lse)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset, scale=scale,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                     scale=scale), None
     instance = choose_instance(q, k, v)
+    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     out = _launch(q, k, v, instance=instance, causal=causal, q_offset=q_offset,
-                  scale=scale)
-    flash_attention.launches += 1
-    flash_attention.instances[instance] += 1
-    return out
+                  scale=scale, lse=lse)
+    _build.count(flash_attention, instance)
+    if with_lse:
+        flash_attention.lse_launches += 1
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its hand-written backward.  The forward saves q, k,
+    v, the output and each row's log-sum-exp; the backward recomputes P
+    from them in :func:`flash_attention_bwd` (no ``[T, S]`` tensor is
+    kept).  Under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass, and is counted again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, scale):
+        out, lse = _forward(q, k, v, causal=causal, q_offset=q_offset,
+                            scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, scale = ctx.attrs
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                         q_offset=q_offset, scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             instance: str, causal: bool = True, q_offset: int = 0,
-            scale: Optional[float] = None) -> torch.Tensor:
+            scale: Optional[float] = None,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch one instance on checked CUDA operands, uncounted: the
     wrapper's path after :func:`choose_instance`, and the way to time or
-    check an instance the chooser would not pick."""
+    check an instance the chooser would not pick.  ``lse``, when given, is
+    a contiguous fp32 ``[B, Hq, T]`` buffer the kernel fills with each
+    row's log-sum-exp."""
     if instance not in INSTANCES:
         raise ValueError(f"unknown flash_attention instance {instance!r}; "
                          f"known: {INSTANCES}")
@@ -213,6 +385,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(),
                      _INSTANCE_IDS[instance], b, t, s, hq, hkv, d,
                      *strides, int(causal), int(q_offset), float(scale), stream)
     _build.check(err, f"flash_attention ({instance})")
@@ -221,3 +394,81 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.instances = dict.fromkeys(INSTANCES, 0)
+flash_attention.lse_launches = 0
+
+# the backward's instances, as its C launcher numbers them
+_BWD_INSTANCE_IDS = {"mma_sync": 1, "cuda_core": 0}
+BWD_INSTANCES = tuple(_BWD_INSTANCE_IDS)
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its base and (batch, row, head) strides are 16-byte
+    aligned with unit stride along D, else a contiguous copy: the bf16
+    backward loads whole 16-byte rows."""
+    if (x.stride(3) == 1 and not x.data_ptr() % 16
+            and not any(st % 8 for st in x.stride()[:3])):
+        return x
+    return x.contiguous() if not x.is_contiguous() else x.clone()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` given ``do``, the
+    gradient of the output, and ``lse [B, Hq, T]`` (fp32), the forward's
+    per-row log-sum-exp; each in its operand's shape and dtype.
+
+    On the card (head dims 32, 64, 128) bf16 takes the ``mma_sync``
+    instance and fp32 the ``cuda_core`` one, three kernels in one launch
+    counted in ``flash_attention_bwd.launches`` and ``.instances``; a CPU
+    tensor takes :func:`flash_attention_bwd_plain`.  Nothing falls back.
+    """
+    _check(q, k, v)
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ShapeContractError(
+                f"flash_attention_bwd needs {name} like q {tuple(q.shape)} "
+                f"{q.dtype}, got {tuple(x.shape)} {x.dtype} on {x.device}",
+                shapes=(q.shape, x.shape))
+    if (tuple(lse.shape) != (b, hq, t) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ShapeContractError(
+            f"flash_attention_bwd needs an fp32 lse {(b, hq, t)}, got "
+            f"{lse.dtype} {tuple(lse.shape)}", shapes=(lse.shape,))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         q_offset=q_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    if d not in HEAD_DIMS:
+        raise ShapeContractError(
+            f"the flash_attention_bwd kernel takes head dims {HEAD_DIMS}, got "
+            f"{d}", shapes=(q.shape, k.shape, v.shape))
+    instance = "mma_sync" if q.dtype == torch.bfloat16 else "cuda_core"
+    ops = [_rows16(x) if instance == "mma_sync" or x.stride(3) != 1 else x
+           for x in (q, k, v, o, do)]
+    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    scale = d ** -0.5 if scale is None else scale
+    strides = [st for x in (*ops, dq, dk, dv) for st in x.stride()[:3]]
+    lse = lse.contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib()(*(x.data_ptr() for x in ops), lse.data_ptr(),
+                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), _BWD_INSTANCE_IDS[instance], b, t, s, hq,
+                         hkv, d, *strides, int(causal), int(q_offset),
+                         float(scale), stream)
+    _build.check(err, f"flash_attention_bwd ({instance})")
+    _build.count(flash_attention_bwd, instance)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.instances = dict.fromkeys(BWD_INSTANCES, 0)

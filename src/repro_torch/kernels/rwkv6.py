@@ -32,6 +32,11 @@ The wrapper checks its operands, allocates the outputs with
 ``rwkv6.launches``.  A CPU tensor takes the plain version
 (:func:`rwkv6_plain`, which counts its calls in ``rwkv6_plain.calls``); a
 CUDA tensor launches the kernel or raises.
+
+The kernel has no backward yet: on a CUDA tensor under autograd (an
+operand that requires grad) the wrapper raises ``NotImplementedError``
+naming ROADMAP queue 1, item 15, where the backward kernel will come; on
+the CPU autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -172,6 +177,11 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return rwkv6_plain(r, k, v, w, u, state0=state0)
     if k.device.type != "cuda":
         raise ValueError(f"rwkv6 runs on cpu or cuda, not {k.device}")
+    ops = (r, k, v, w, u) + (() if state0 is None else (state0,))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ops):
+        raise NotImplementedError(
+            "the rwkv6 kernel has no backward yet (ROADMAP queue 1, item 15): "
+            "rwkv (ssm) training runs on the CPU")
     b, t, h, dk = k.shape
     dv = v.shape[-1]
     if dk != HEAD_SIZE or dv != HEAD_SIZE:

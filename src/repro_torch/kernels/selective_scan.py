@@ -27,6 +27,11 @@ The wrapper checks its operands, allocates the outputs with
 which counts its calls in ``selective_scan_plain.calls``); a CUDA tensor
 launches the kernel or raises.
 
+The kernel has no backward yet: on a CUDA tensor under autograd (an
+operand that requires grad) the wrapper raises ``NotImplementedError``
+naming ROADMAP queue 1, item 15, where the backward kernel will come; on
+the CPU autograd differentiates the plain version.
+
 :func:`agreement` is :func:`~repro_torch.kernels.rwkv6.agreement`: the
 kernel and the plain version run in fp32 from the same inputs and differ
 only in the order of their products and sums, as the two WKV versions do,
@@ -168,6 +173,11 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                                     return_state=return_state)
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cpu or cuda, not {u.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (u, dt, a, b_t, c_t)):
+        raise NotImplementedError(
+            "the selective_scan kernel has no backward yet (ROADMAP queue 1, "
+            "item 15): hybrid (jamba) training runs on the CPU")
     b, t, di = u.shape
     n = a.shape[1]
     if n not in STATES:

@@ -3,6 +3,7 @@
     model = get_model(cfg)
     params = model.init_params(cfg, seed, device=...)
     hidden, aux = model.forward(cfg, params, tokens, embeds=...)
+    loss = model.loss_fn(cfg, params, tokens, targets, embeds=...)
     cache = model.init_cache(cfg, batch, max_len, device=...)
     logits, cache = model.decode_step(cfg, params, cache, token, pos)
 

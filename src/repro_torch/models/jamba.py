@@ -1,8 +1,7 @@
 """Jamba hybrid (Mamba + attention 1:7 interleave, MoE every other layer) —
 arXiv:2403.19887.
 
-Port of ``repro/models/jamba.py`` without ``loss_fn`` (training is not
-ported yet: ROADMAP queue 1, item 13).  Layer ``l`` uses attention iff
+Port of ``repro/models/jamba.py``.  Layer ``l`` uses attention iff
 ``l % attn_every == attn_offset`` (default 1-in-8, middle of the block),
 Mamba otherwise; the FFN is MoE (16e top-2) on odd layers, dense SwiGLU on
 even.  Layers are heterogeneous, so the weights are a :class:`Jamba`
@@ -15,6 +14,11 @@ the selective-scan kernel.  Decode attends over a windowed KV cache in
 plain torch, written in place, and steps the Mamba states in plain torch,
 as the JAX package computes both in XLA.  The family has no paged decode
 path and serves through ``Engine._generate_legacy``.
+
+:func:`loss_fn` (cross entropy plus ``0.01 * aux`` of the MoE) trains on
+the CPU, where the scan is the kernel's plain version; the scan kernel has
+no backward yet, so on the card it refuses under autograd (ROADMAP queue
+1, item 15).
 """
 from __future__ import annotations
 
@@ -30,12 +34,13 @@ from .layers import (
     attention_chunked,
     decode_attention,
     gqa_project,
+    remat,
     rms_norm,
     swiglu,
 )
 from .moe import init_moe_params, moe_ffn
 from .ssm import Mamba, init_ssm_params, init_states, mamba_block
-from .transformer import Tree
+from .transformer import Tree, chunked_xent
 from .transformer import logits_fn as logits_fn
 
 # attention layers cap their KV window at long context (128k) — the hybrid's
@@ -152,14 +157,26 @@ def forward(cfg: ModelConfig, params: Jamba, tokens: torch.Tensor,
     x = params.embed[tokens]
     positions = _positions(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, p in enumerate(params.layers):
-        mix, _ = _mix(cfg, l, x, p, positions)
-        x = x + mix
+
+    def block(x, l, p):
+        x = x + _mix(cfg, l, x, p, positions)[0]
         ffn, aux = _ffn(cfg, l, x, p)
-        x = x + ffn
+        return x + ffn, aux
+
+    for l, p in enumerate(params.layers):
+        x, aux = remat(block, x, l, p) if cfg.remat else block(x, l, p)
         aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, aux_total / cfg.n_layers
+
+
+def loss_fn(cfg: ModelConfig, params: Jamba, tokens, targets, *,
+            seq_chunk: int = 512, embeds=None) -> torch.Tensor:
+    """Next-token cross entropy, sequence-chunked softmax, plus ``0.01 *
+    aux`` (the MoE layers' load-balance loss)."""
+    hidden, aux = forward(cfg, params, tokens)
+    return chunked_xent(cfg, params, hidden, targets, seq_chunk,
+                        logits_fn) + 0.01 * aux
 
 
 @dataclasses.dataclass

@@ -3,13 +3,15 @@
 
 Port of ``repro/models/layers.py``.  Layers take and return tensors in the
 JAX package's ``[B, T, H, D]`` layout, so each function compares with its
-counterpart on the same inputs.  The reference's ``shard(...)`` annotations
-are left out: on one card they do nothing, and the sharded layout comes
-with the training slice (ROADMAP queue 1, items 8 and 13).
+counterpart on the same inputs.  The reference's ``shard(...)``
+annotations are left out: on one card they do nothing, and multi-card
+training's layout is ROADMAP queue 1, item 16.
 
-Prefill attention (:func:`attention_chunked`) runs the hand-written flash
-kernel on the card; decode attention stays plain torch, as the JAX package
-computes it in XLA and not in a Pallas kernel.
+Prefill and training attention (:func:`attention_chunked`) runs the
+hand-written flash kernel on the card, with its hand-written backward
+under autograd; decode attention stays plain torch, as the JAX package
+computes it in XLA and not in a Pallas kernel.  :func:`remat` is the
+port's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -17,10 +19,22 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations dropped and recomputed in the
+    backward pass, as ``jax.checkpoint(fn)(*args)``; a plain call when
+    autograd is not recording.  Non-reentrant, so the weights ``fn``
+    reaches through its closure or a module argument get their
+    gradients."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -77,10 +91,12 @@ def attention_direct(q, k, v, *, causal: bool, q_offset: int = 0):
 
 
 def attention_chunked(q, k, v, *, causal: bool):
-    """Prefill attention: the flash kernel on the card, its plain version
-    on the CPU.  The reference's XLA online-softmax scan (``q_chunk`` /
-    ``kv_chunk`` tiles) is the Pallas kernel's twin; here the kernel tiles
-    itself."""
+    """Prefill and training attention: the flash kernel on the card, its
+    plain version on the CPU; under autograd the backward is the flash
+    backward kernel (its plain version on the CPU).  The reference's XLA
+    online-softmax scan (``q_chunk`` / ``kv_chunk`` tiles) is the Pallas
+    kernel's twin, and training differentiates it with XLA's autodiff;
+    here the kernels tile themselves."""
     return flash_attention(q, k, v, causal=causal)
 
 

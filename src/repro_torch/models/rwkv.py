@@ -1,7 +1,6 @@
 """RWKV-6 "Finch" LM (attention-free, data-dependent decay), arXiv:2404.05892.
 
-Port of ``repro/models/rwkv.py`` without ``loss_fn`` (training is not
-ported yet: ROADMAP queue 1, item 13).  Block = time-mix (token shift,
+Port of ``repro/models/rwkv.py``.  Block = time-mix (token shift,
 r/k/v/g projections, LoRA-style dynamic decay ``w_t``, WKV recurrence) +
 channel-mix (token shift, squared-ReLU FFN).  Weights are an
 :class:`RWKV` module holding one :class:`Layer` per block, named as in
@@ -14,6 +13,10 @@ seeds decode, so ``cfg.wkv_chunk`` is not read: the reference's chunked
 form is another schedule of the same function.  ``decode_step`` keeps the
 reference's inline fp32 update, as the JAX decode has no kernel either,
 and writes the cache in place.
+
+:func:`loss_fn` trains on the CPU, where the WKV is the kernel's plain
+version and autograd differentiates it; the kernel has no backward yet,
+so on the card it refuses under autograd (ROADMAP queue 1, item 15).
 
 Decode carries (shift_tm, shift_cm, wkv_state) per layer: constant memory,
 so the family has no paged decode path and serves through
@@ -33,7 +36,7 @@ from ..mpc.field import generator
 from .config import ModelConfig
 from .layers import rms_norm
 from .transformer import Layer as _Layer
-from .transformer import Transformer, logits_fn
+from .transformer import Transformer, chunked_xent, logits_fn, run_layers
 
 HEAD_K = 64  # RWKV-6 head size
 
@@ -181,11 +184,19 @@ def forward(cfg: ModelConfig, params: RWKV, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, T] int -> (hidden [B, T, D], aux loss 0)."""
-    x = params.embed[tokens]
-    for lp in params.layers:
-        x, _, _, _ = _layer(cfg, x, lp)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, aux, lp):
+        return _layer(cfg, x, lp)[0], aux
+
+    x, aux = run_layers(cfg, body, params.embed[tokens], list(params.layers))
+    return rms_norm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def loss_fn(cfg: ModelConfig, params: RWKV, tokens, targets, *,
+            seq_chunk: int = 512, embeds=None) -> torch.Tensor:
+    """Next-token cross entropy, sequence-chunked softmax (no aux)."""
+    hidden, _ = forward(cfg, params, tokens)
+    return chunked_xent(cfg, params, hidden, targets, seq_chunk, logits_fn)
 
 
 @dataclasses.dataclass

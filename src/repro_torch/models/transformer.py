@@ -9,6 +9,17 @@ flash kernel on the card
 (:func:`~repro_torch.models.layers.attention_chunked`); decode attends over
 a contiguous or paged KV cache in plain torch, written in place.  A MoE
 block's FFN is :func:`~repro_torch.models.moe.moe_ffn` in every path.
+
+Weights are frozen parameters (``requires_grad=False``) as serving builds
+them; ``model.requires_grad_(True)`` makes them trainable, as
+``train.step.init_train_state`` and ``convert.params_from_numpy(...,
+trainable=True)`` do.  :func:`loss_fn` is the reference's: next-token
+cross entropy over sequence chunks whose logits are recomputed in the
+backward pass (``jax.checkpoint`` → :func:`~repro_torch.models.layers.remat`),
+plus ``0.01 * aux`` of the MoE; ``cfg.remat`` rematerializes each layer
+(blocks of ``cfg.remat_block`` layers, with the layers inside them
+rematerialized again, when that is above 1).  The same chunked loss
+serves the other families (:func:`chunked_xent`).
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from .layers import (
     decode_attention,
     gqa_project,
     paged_decode_attention,
+    remat,
     rms_norm,
     swiglu,
 )
@@ -184,6 +196,34 @@ def _embed(params: Transformer, tokens, embeds):
     return x, positions
 
 
+def run_layers(cfg: ModelConfig, body, x, layers):
+    """``x, aux = body(x, aux, layer)`` over ``layers``, under ``cfg.remat``
+    as the reference's scan: each layer rematerialized and, with
+    ``remat_block`` k > 1, each block of k layers rematerialized as a whole
+    too (the last ``L mod k`` layers on their own).  ``aux`` starts at a
+    0-d fp32 zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not cfg.remat:
+        for lp in layers:
+            x, aux = body(x, aux, lp)
+        return x, aux
+
+    def step(x, aux, lp):
+        return remat(body, x, aux, lp)
+
+    k = cfg.remat_block
+    l1 = (len(layers) // k) * k if k > 1 else 0
+    for b0 in range(0, l1, k):
+        def block(x, aux, b0=b0):
+            for lp in layers[b0:b0 + k]:
+                x, aux = step(x, aux, lp)
+            return x, aux
+        x, aux = remat(block, x, aux)
+    for lp in layers[l1:]:
+        x, aux = step(x, aux, lp)
+    return x, aux
+
+
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
             embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -192,10 +232,12 @@ def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     Returns (hidden [B, T, D], aux loss scalar: the MoE load-balance loss
     averaged over the layers, 0 for the dense FFN)."""
     x, positions = _embed(params, tokens, embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params.layers:
+
+    def body(x, aux, lp):
         x, a, _ = _layer(cfg, x, lp, positions)
-        aux = aux + a
+        return x, aux + a
+
+    x, aux = run_layers(cfg, body, x, list(params.layers))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, aux / cfg.n_layers
 
@@ -225,6 +267,42 @@ def logits_fn(cfg: ModelConfig, params: Transformer,
         pad = torch.arange(vp, device=out.device) >= cfg.vocab
         out = out.masked_fill(pad, -1e30)
     return out
+
+
+def chunked_xent(cfg: ModelConfig, params, hidden: torch.Tensor,
+                 targets: torch.Tensor, seq_chunk: int, logits) -> torch.Tensor:
+    """Mean next-token cross entropy of ``hidden [B, T, D]`` against
+    ``targets [B, T']``, the reference's chunked form: positions a
+    frontend prepended (``T > T'``) have no label and are cut, the
+    sequence is cut into ``min(seq_chunk, T')`` chunks (a ragged tail is
+    dropped, as there), and each chunk's fp32 logits
+    (``logits(cfg, params, h)``) are rematerialized, so the backward pass
+    holds one chunk's ``[B, chunk, Vp]`` at a time.  Returns the mean of
+    the chunks' means."""
+    t = hidden.shape[1]
+    if targets.shape[1] != t:
+        hidden = hidden[:, t - targets.shape[1]:]
+        t = targets.shape[1]
+    chunk = min(seq_chunk, t)
+
+    def one(hx, tx):
+        lg = logits(cfg, params, hx).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = lg.gather(-1, tx[..., None].long())[..., 0]
+        return (lse - picked).mean()
+
+    losses = [remat(one, hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk])
+              for c0 in range(0, (t // chunk) * chunk, chunk)]
+    return torch.stack(losses).mean()
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer, tokens, targets, *,
+            seq_chunk: int = 512, embeds=None) -> torch.Tensor:
+    """Next-token cross entropy, sequence-chunked softmax, plus ``0.01 *
+    aux`` (the MoE's load-balance loss; 0 for the dense FFN)."""
+    hidden, aux = forward(cfg, params, tokens, embeds=embeds)
+    return chunked_xent(cfg, params, hidden, targets, seq_chunk,
+                        logits_fn) + 0.01 * aux
 
 
 # ----------------------------------------------------------------- decode --

@@ -1,7 +1,6 @@
 """Whisper-small encoder–decoder backbone — arXiv:2212.04356.
 
-Port of ``repro/models/whisper.py`` without ``loss_fn`` (training is not
-ported yet: ROADMAP queue 1, item 13).  The audio frontend (two 1-D convs
+Port of ``repro/models/whisper.py``.  The audio frontend (two 1-D convs
 with stride-2 downsampling over log-mel frames) is a STUB, as in the
 reference: callers supply frame embeddings [B, T_frames, D].  Encoder =
 bidirectional self-attn; decoder = causal self-attn + cross-attn to the
@@ -18,6 +17,9 @@ cross-attention: 3 launches a layer pair); decode attends over the
 self-KV cache in plain torch, written in place, and cross-attends with
 ``attention_direct``, as the reference does.  The family has no paged
 decode path and serves through ``Engine._generate_legacy``.
+:func:`loss_fn` trains every attention on the flash kernel and its
+backward (encoder non-causal, decoder causal, cross-attention with the
+frames' length as S), each block rematerialized under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -31,8 +33,14 @@ import torch.nn.functional as F
 from ..mpc.errors import ShapeContractError
 from ..mpc.field import generator
 from .config import ModelConfig
-from .layers import KVCache, attention_chunked, attention_direct, decode_attention
-from .transformer import Tree
+from .layers import (
+    KVCache,
+    attention_chunked,
+    attention_direct,
+    decode_attention,
+    remat,
+)
+from .transformer import Tree, chunked_xent
 
 MAX_DEC_POS = 1 << 16
 
@@ -146,9 +154,13 @@ def encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor
     x = frames + sinusoids(frames.shape[1], cfg.d_model,
                            device=frames.device).to(frames.dtype)
     eps = cfg.norm_eps
-    for p in params.enc_layers:
+
+    def block(x, p):
         x = x + _mha(cfg, _ln(x, p["norm1"], eps), p, causal=False)
-        x = x + _mlp(_ln(x, p["norm2"], eps), p)
+        return x + _mlp(_ln(x, p["norm2"], eps), p)
+
+    for p in params.enc_layers:
+        x = remat(block, x, p) if cfg.remat else block(x, p)
     return _ln(x, params.enc_norm, eps)
 
 
@@ -160,12 +172,16 @@ def _dec_embed(cfg: ModelConfig, params: Whisper, tokens: torch.Tensor):
 def decode_train(cfg: ModelConfig, params: Whisper, tokens: torch.Tensor,
                  enc_out: torch.Tensor) -> torch.Tensor:
     eps = cfg.norm_eps
-    x = _dec_embed(cfg, params, tokens)
-    for p in params.dec_layers:
+
+    def block(x, p):
         x = x + _mha(cfg, _ln(x, p["norm1"], eps), p, causal=True)
         x = x + _mha(cfg, _ln(x, p["norm2"], eps), p, kv=enc_out, causal=False,
                      prefix="x_")
-        x = x + _mlp(_ln(x, p["norm3"], eps), p)
+        return x + _mlp(_ln(x, p["norm3"], eps), p)
+
+    x = _dec_embed(cfg, params, tokens)
+    for p in params.dec_layers:
+        x = remat(block, x, p) if cfg.remat else block(x, p)
     return _ln(x, params.dec_norm, eps)
 
 
@@ -187,6 +203,14 @@ def logits_fn(cfg: ModelConfig, params: Whisper,
         pad = torch.arange(vp, device=out.device) >= cfg.vocab
         out = out.masked_fill(pad, -1e30)
     return out
+
+
+def loss_fn(cfg: ModelConfig, params: Whisper, tokens, targets, *,
+            seq_chunk: int = 512, embeds=None) -> torch.Tensor:
+    """Next-token cross entropy of the decoder, sequence-chunked softmax;
+    ``embeds`` are the encoder frames (the frontend stub's output)."""
+    hidden, _ = forward(cfg, params, tokens, embeds=embeds)
+    return chunked_xent(cfg, params, hidden, targets, seq_chunk, logits_fn)
 
 
 @dataclasses.dataclass

@@ -26,7 +26,15 @@ mesh of one card repeated four times against the local backend, and on
 two cards where the process sees two; olmoe's prefill attention (D = 128,
 T = 2048) on the ``wgmma`` instance.  Reduced jamba and whisper run
 their prefill through the kernels (1 flash and 7 scan launches; 6 flash
-launches) and match the CPU."""
+launches) and match the CPU.
+
+Training: the flash backward kernel against its plain version within
+``flash_attention.grad_agreement``'s limits (fp32: 1e-5 relative Frobenius
+per gradient; bf16: 2^-7, and per element 2^-6 of |ref| plus the row's
+rms plus a tenth of the gradient's rms) at every head dim and dtype, the
+same bits twice, three planted faults rejected; the serve forward writing
+no lse; the recurrence kernels refusing under autograd (ROADMAP queue 1,
+item 15); one reduced fp32 train step on the card against the CPU's."""
 import dataclasses
 
 import numpy as np
@@ -100,8 +108,8 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     counts = launch_counts()
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
-                      "flash_attention": 0, "rwkv6": 0, "ring_fold": 0,
-                      "selective_scan": 0}
+                      "flash_attention": 0, "flash_attention_bwd": 0,
+                      "rwkv6": 0, "ring_fold": 0, "selective_scan": 0}
 
 
 # (W, M, K, N): the main path's product cut to 128, ragged edges in every
@@ -233,7 +241,7 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
                       "polyeval": 4 * blocks, "flash_attention": 0,
-                      "rwkv6": 0, "ring_fold": 0,
+                      "flash_attention_bwd": 0, "rwkv6": 0, "ring_fold": 0,
                       "selective_scan": 0}
 
 
@@ -827,7 +835,7 @@ def test_gpu_sharded_on_one_card_equals_local(cuda, p, wire, prg):
     assert torch.equal(got, local)
     assert counts == {"modmatmul_batched": 4 * blocks, "modmatmul": 0,
                       "polyeval": 13 * blocks, "flash_attention": 0,
-                      "rwkv6": 0,
+                      "flash_attention_bwd": 0, "rwkv6": 0,
                       "ring_fold": 12 * blocks if wire == "int32" else 0,
                       "selective_scan": 0}
 
@@ -1037,3 +1045,198 @@ def test_gpu_whisper_prefill_runs_the_kernels_and_matches_the_cpu(cuda):
     assert launch_counts()["flash_attention"] == 12
     assert torch.equal(got.cpu(), Engine(cfg, cpu, device="cpu")
                        .generate(toks, 5, embeds=frames))
+
+
+# ------------------------------------------------ training: flash backward
+# (B, T, S, Hq, Hkv, D, dtype, causal, q_offset): every head dim and dtype,
+# GQA and not, T != S, q_offset, ragged tiles and rows that see no key
+BWD_CASES = [
+    (2, 256, 256, 32, 8, 64, torch.bfloat16, True, 0),     # llama's heads
+    (1, 300, 300, 8, 2, 128, torch.bfloat16, True, 0),     # D = 128
+    (1, 200, 200, 16, 16, 128, torch.bfloat16, True, 0),   # olmoe: no GQA
+    (2, 77, 130, 4, 4, 32, torch.bfloat16, True, 53),      # D = 32, ragged
+    (2, 100, 150, 12, 12, 64, torch.bfloat16, False, 0),   # whisper cross
+    (1, 64, 64, 2, 1, 64, torch.bfloat16, True, -20),      # rows see no key
+    (2, 96, 96, 4, 1, 32, torch.float32, True, 0),
+    (1, 200, 77, 8, 2, 128, torch.float32, False, 0),
+    (1, 130, 130, 4, 2, 64, torch.float32, True, 0),
+    (1, 50, 50, 2, 1, 64, torch.float32, True, -10),       # rows see no key
+]
+
+
+def _bwd_operands(cuda, case, seed):
+    b, t, s, hq, hkv, d, dtype = case[:7]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    return (draw(b, t, hq, d), draw(b, s, hkv, d), draw(b, s, hkv, d),
+            draw(b, t, hq, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_gpu_flash_bwd_kernel_equals_plain(cuda, case):
+    """The backward kernel against its plain version within
+    ``grad_agreement``'s limits, from the forward kernel's own lse (which
+    must equal the plain version's, +inf where a row sees no key)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal, q_offset = case[7], case[8]
+    q, k, v, do = _bwd_operands(cuda, case, sum(case[:6]))
+    inst = fa.choose_instance(q, k, v)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), device=cuda)
+    o = fa._launch(q, k, v, instance=inst, causal=causal, q_offset=q_offset,
+                   lse=lse)
+    _, lse_ref = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                       return_lse=True)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    seen = torch.isfinite(lse_ref)
+    torch.testing.assert_close(lse[seen], lse_ref[seen], atol=1e-5, rtol=1e-6)
+    reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                 q_offset=q_offset)
+    torch.cuda.synchronize()
+    instance = "mma_sync" if q.dtype == torch.bfloat16 else "cuda_core"
+    assert launch_counts()["flash_attention_bwd"] == 1
+    assert instance_counts()["flash_attention_bwd"][instance] == 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                        q_offset=q_offset)
+    for x, g in zip((q, k, v), got, strict=True):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g).all()
+    a = fa.grad_agreement(got, want)
+    assert a["ok"], a
+    if q_offset < 0:                          # rows that see no key
+        assert not got[0][:, :-q_offset].any()
+    # no atomics: the same bits every run
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   q_offset=q_offset)
+    assert all(torch.equal(x, y) for x, y in zip(got, again, strict=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_flash_bwd_check_rejects_planted_faults(cuda, dtype):
+    """D omitted, the scale dropped from dK and the GQA sum over one head
+    each fail ``grad_agreement`` against the plain version; the kernel
+    passes it."""
+    case = (1, 256, 256, 8, 2, 64, dtype, True, 0)
+    q, k, v, do = _bwd_operands(cuda, case, 11)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
+    assert fa.grad_agreement(fa.flash_attention_bwd(q, k, v, o, do, lse),
+                             ref)["ok"]
+    no_delta = fa.flash_attention_bwd_plain(q, k, v, torch.zeros_like(o), do,
+                                            lse)
+    _, dk1, dv1 = fa.flash_attention_bwd_plain(
+        q, k.repeat_interleave(4, 2), v.repeat_interleave(4, 2), o, do, lse)
+    faults = {"D omitted": no_delta,
+              "scale dropped from dK": (ref[0], ref[1] * 8.0, ref[2]),
+              "GQA sum over one head": (ref[0], dk1[:, :, ::4], dv1[:, :, ::4])}
+    for name, bad in faults.items():
+        assert not fa.grad_agreement(bad, ref)["ok"], name
+
+
+@pytest.mark.gpu
+def test_gpu_flash_bwd_copies_unaligned_operands(cuda):
+    """bf16 rows that are not 16-byte aligned are copied before the
+    backward (it loads whole 16-byte rows); the gradients are the same."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    big = torch.randn((1, 150, 12, 65), generator=g, device=cuda)
+    big = big.to(torch.bfloat16)
+    q, k, v = big[:, :, :8, 1:], big[:, :, 8:10, 1:], big[:, :, 10:, 1:]
+    do = torch.randn((1, 150, 8, 64), generator=g, device=cuda).to(torch.bfloat16)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    want = fa.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o, do)),
+                                  lse)
+    assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+
+
+@pytest.mark.gpu
+def test_gpu_serve_forward_writes_no_lse(cuda):
+    """Without autograd the forward passes no lse buffer (the serve path);
+    under autograd it writes one and gives the same output bits."""
+    q, k, v, _ = _bwd_operands(cuda, (1, 256, 256, 8, 2, 64, torch.bfloat16),
+                               5)
+    reset_launch_counts()
+    with torch.no_grad():
+        served = flash_attention(q, k, v)
+    assert fa.flash_attention.lse_launches == 0
+    assert launch_counts()["flash_attention"] == 1
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    trained = flash_attention(qs, ks, vs)
+    assert fa.flash_attention.lse_launches == 1
+    assert torch.equal(served, trained.detach())
+    grads = torch.autograd.grad(trained.float().sum(), (qs, ks, vs))
+    assert launch_counts()["flash_attention_bwd"] == 1
+    assert all(torch.isfinite(x).all() for x in grads)
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv6_and_selective_scan_refuse_under_grad(cuda):
+    """Neither recurrence kernel has a backward yet: under autograd on the
+    card they refuse by name (ROADMAP queue 1, item 15); without it they
+    run."""
+    r = torch.randn((1, 8, 2, 64), device=cuda, requires_grad=True)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        rwkv6(r, r, r, r, u)
+    with torch.no_grad():
+        rwkv6(r, r, r, r, u)
+    x = torch.randn((1, 8, 16), device=cuda, requires_grad=True)
+    bc = torch.randn((1, 8, 16), device=cuda)
+    a = -torch.ones((16, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        selective_scan(x, x, a, bc, bc)
+    with torch.no_grad():
+        selective_scan(x, x, a, bc, bc)
+    for arch, model in (("rwkv6-1.6b", rw), ("jamba-v0.1-52b", jb)):
+        cfg = reduced(get_config(arch))
+        params = model.init_params(cfg, 0, device=cuda).requires_grad_(True)
+        tok = torch.zeros((1, 16), dtype=torch.long, device=cuda)
+        with pytest.raises(NotImplementedError, match="item 15"):
+            model.loss_fn(cfg, params, tok, tok)
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_the_cpu(cuda):
+    """Reduced llama3.2-1b in fp32: one train step on the card (flash
+    forward and backward kernels, 2 and 2 launches, remat off) against
+    the same step on the CPU: loss, gnorm and the updated weights."""
+    from repro_torch.models.convert import to_jax_tree
+    from repro_torch.train.step import (
+        TrainConfig,
+        make_optimizer,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("llama3.2-1b"))
+    tc = TrainConfig(warmup=0, seq_chunk=32)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "targets")}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tr.init_params(cfg, 0, device="cpu").to(dev).requires_grad_(True)
+        opt_state = make_optimizer(tc).init(params)
+        reset_launch_counts()
+        params, _, m = make_train_step(cfg, tc)(
+            params, opt_state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (m, to_jax_tree(cfg, dict(params.named_parameters())),
+                         launch_counts())
+    (mc, pc, _), (mg, pg, counts) = out["cpu"], out[str(cuda)]
+    assert counts["flash_attention"] == 2 and counts["flash_attention_bwd"] == 2
+    for key in ("loss", "gnorm", "lr"):
+        assert float(mg[key]) == pytest.approx(float(mc[key]), rel=1e-5)
+    # per weight, 1e-5 in relative Frobenius norm: an element whose
+    # gradient is near 0 moves by lr g / (|g| + eps), which the last bits of
+    # g decide
+    leaves = [(pg["embed"], pc["embed"]), (pg["final_norm"], pc["final_norm"])]
+    leaves += [(pg["layers"][n], pc["layers"][n]) for n in pc["layers"]]
+    for got, want in leaves:
+        assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)

@@ -158,7 +158,8 @@ def test_cpu_tensors_launch_nothing():
                    z[..., :1].expand(1, 3, 8))
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
                                "polyeval": 0, "flash_attention": 0,
-                               "rwkv6": 0, "ring_fold": 0, "selective_scan": 0}
+                               "flash_attention_bwd": 0, "rwkv6": 0,
+                               "ring_fold": 0, "selective_scan": 0}
 
 
 # ---------------------------------------------------------------- polyeval
