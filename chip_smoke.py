@@ -248,9 +248,13 @@ MOE_LANES = 4
 # Engine.generate calls of (batch, prompt tokens, max_new)
 RWKV_LAYERS, RWKV_HEADS, RWKV_HEAD = 24, 32, 64
 RWKV_CALLS = ((4, 2048, 32), (1, 1000, 16))
-# the scan phase: (B, T) at jamba's Di 8192 = 2 x 4096 and N 16
+# the scan phase: (B, T) at jamba's Di 8192 = 2 x 4096 and N 16; [1,2048]
+# and [4,512] are the jamba phase's served prefills
 SCAN_DI, SCAN_N = 8192, 16
-SCAN_SHAPES = ((1, 2048), (4, 2048), (1, 1000))
+SCAN_SHAPES = ((1, 2048), (4, 2048), (1, 1000), (4, 512))
+# the special-function unit: 16 results a clock per SM (ex2) at the H100
+# SXM's 1.98 GHz boost clock
+MUFU_PER_SM_CLOCK, SM_CLOCK_HZ = 16, 1.98e9
 # the jamba phase: jamba-v0.1-52b cut to one period of its interleave; two
 # Engine.generate calls of (batch, prompt tokens, max_new); the fp32 state
 # check at 5 layers (layer 4 is the attention layer)
@@ -1394,13 +1398,21 @@ def scan_faults(u, dt, a, b_t, c_t):
                                                     return_state=True)
 
 
-def scan_phase(torch, dev, gen):
+def scan_phase(torch, dev, gen, sms):
     """The selective-scan kernel against its plain version at jamba's
-    widths (Di 8192, N 16), bf16 and fp32, on y and the final state, with
-    two planted faults that must fail the check; timed beside the plain
-    version.  Returns the records by (B, T)."""
+    widths (Di 8192, N 16), bf16 and fp32, on y and the final state: the
+    routed ``tma`` instance and the ``simple`` one on the same operands,
+    with two planted faults that must fail the check; both timed beside
+    the plain version, the bytes bound and the special-function floor.
+    Returns the records by (B, T)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.selective_scan import (
         agreement,
         selective_scan,
@@ -1409,7 +1421,8 @@ def scan_phase(torch, dev, gen):
 
     print(f"selective_scan kernel checks (jamba-v0.1-52b: Di {SCAN_DI}, N "
           f"{SCAN_N}; dt = softplus(N(-4, 1)) as dt_bias -4 gives, a = "
-          f"-(1..N), u, b, c ~ N(0, 1)):", flush=True)
+          f"-(1..N), u, b, c ~ N(0, 1)); the tma instance routed, the simple "
+          f"one beside it:", flush=True)
     rec = {}
     for b, t in SCAN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1422,20 +1435,36 @@ def scan_phase(torch, dev, gen):
                               device=dev).expand(SCAN_DI, SCAN_N).contiguous()
             b_t, c_t = draw(b, t, SCAN_N).to(dtype), draw(b, t, SCAN_N).to(dtype)
             ops = (u, dt, a, b_t, c_t)
+            reset_launch_counts()
             y, h = selective_scan(*ops, return_state=True)
-            want_y, want_h = selective_scan_plain(*ops, return_state=True)
             torch.cuda.synchronize()
-            require(y.shape == want_y.shape and h.shape == want_h.shape,
-                    f"scan [{b},{t}]: {tuple(y.shape)} {tuple(h.shape)}")
-            require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
-                    f"scan [{b},{t}]: non-finite result")
-            a_y, a_h = agreement(y, want_y), agreement(h, want_h)
+            require(launch_counts()["selective_scan"] == 1
+                    and instance_counts()["selective_scan"]["tma"] == 1,
+                    f"scan [{b},{t}]: instances "
+                    f"{instance_counts()['selective_scan']}")
+            want_y, want_h = selective_scan_plain(*ops, return_state=True)
+            old_y, old_h = ss._launch(*ops, instance="simple",
+                                      return_state=True)
+            torch.cuda.synchronize()
             name = str(dtype).split(".")[-1]
             what = f"[{b},{t},{SCAN_DI},{SCAN_N}] {name}"
-            require(a_y["ok"] and a_h["ok"], f"scan {what}: kernel != plain (y "
+            for inst, (gy, gh) in (("tma", (y, h)), ("simple", (old_y, old_h))):
+                require(gy.shape == want_y.shape and gh.shape == want_h.shape,
+                        f"scan {what} {inst}: {tuple(gy.shape)} "
+                        f"{tuple(gh.shape)}")
+                require(bool(torch.isfinite(gy).all()
+                             and torch.isfinite(gh).all()),
+                        f"scan {what} {inst}: non-finite result")
+            a_y, a_h = agreement(y, want_y), agreement(h, want_h)
+            o_y, o_h = agreement(old_y, want_y), agreement(old_h, want_h)
+            require(a_y["ok"] and a_h["ok"], f"scan {what}: tma != plain (y "
                     f"{readings(a_y)}; state {readings(a_h)})")
-            print(f"  {what}: y {readings(a_y)}; state {readings(a_h)}",
+            require(o_y["ok"] and o_h["ok"], f"scan {what}: simple != plain "
+                    f"(y {readings(o_y)}; state {readings(o_h)})")
+            print(f"  {what}: tma y {readings(a_y)}; state {readings(a_h)}; "
+                  f"simple y {readings(o_y)}; state {readings(o_h)}",
                   flush=True)
+            del old_y, old_h
             served = dtype == torch.bfloat16
             if served and (b, t) == SCAN_SHAPES[1]:
                 for fault, (bad_y, bad_h) in scan_faults(*ops):
@@ -1449,19 +1478,28 @@ def scan_phase(torch, dev, gen):
             if served:
                 nbytes, ops_n = scan_work(b, t, SCAN_DI, SCAN_N, 2)
                 bms, by = bound(nbytes, ops_n, FP32_OPS_PER_S)
+                exps = b * t * SCAN_DI * SCAN_N
+                mufu_ms = exps / (MUFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
                 r = rec[(b, t)] = {
                     "max_abs_err": max(a_y["max_abs_err"], a_h["max_abs_err"]),
                     "ms": time_ms(torch, lambda: selective_scan(
                         *ops, return_state=True), 20),
+                    "simple_ms": time_ms(torch, lambda: ss._launch(
+                        *ops, instance="simple", return_state=True), 20),
                     "plain_ms": time_ms(torch, lambda: selective_scan_plain(
                         *ops, return_state=True), 2),
-                    "bound_ms": bms, "bound_by": by,
+                    "bound_ms": bms, "bound_by": by, "mufu_ms": mufu_ms,
                     "fp32_ops_ms": ops_n / FP32_OPS_PER_S * 1e3}
-                print(f"    kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms,"
-                      f" bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; "
+                print(f"    kernel [tma] {r['ms']:.4f} ms, simple "
+                      f"{r['simple_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+                      f"bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; "
                       f"{ops_n / 1e9:.2f} G fp32 operations take "
                       f"{r['fp32_ops_ms']:.4f} ms at the fp32 peak); "
-                      f"{100 * bms / r['ms']:.1f} % of the bound", flush=True)
+                      f"{100 * bms / r['ms']:.1f} % of the bound; "
+                      f"{exps / 1e9:.3f} G exponentials take {mufu_ms:.4f} ms "
+                      f"on the special-function units ({MUFU_PER_SM_CLOCK} a "
+                      f"clock per SM, {sms} SMs, {SM_CLOCK_HZ / 1e9} GHz)",
+                      flush=True)
             del ops, u, dt, b_t, c_t, y, h, want_y, want_h
             torch.cuda.empty_cache()
     return rec
@@ -1693,6 +1731,7 @@ def whisper_phase(torch, np, dev, seed, hold_flash):
     cross-attention's shapes beside SDPA.  Returns the two flash records
     and the serve run's launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import instance_counts, reset_launch_counts
     from repro_torch.models import whisper as wh
     from repro_torch.serve import Engine
     from repro_torch.serve.engine import _pad_cache
@@ -1780,6 +1819,34 @@ def whisper_phase(torch, np, dev, seed, hold_flash):
     for r in (enc, cross):
         require(r["instance"] == "wgmma", f"whisper flash instance "
                 f"{r['instance']}")
+
+    # the bf16 model on fp32 frames, as JAX promotes: the encoder in fp32,
+    # the cross-attention's fp32 keys and values against bf16 queries on
+    # the fp32 kernel, a bf16 hidden state (the CPU test pins these dtypes
+    # to JAX's)
+    fr32 = torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                       device=dev)
+    tok32 = torch.as_tensor(prompts[1][:1], device=dev)
+    reset_launch_counts()
+    enc32 = wh.encode(cfg, params, fr32)
+    hid32, _ = wh.forward(cfg, params, tok32, embeds=fr32)
+    torch.cuda.synchronize()
+    inst32 = instance_counts()["flash_attention"]
+    want32 = {"wgmma": cfg.n_layers, "mma_sync": 0,
+              "cuda_core": 2 * cfg.n_enc_layers + cfg.n_layers}
+    require(enc32.dtype == torch.float32 and hid32.dtype == torch.bfloat16
+            and tuple(hid32.shape) == (1, tok32.shape[1], cfg.d_model)
+            and bool(torch.isfinite(enc32).all())
+            and bool(torch.isfinite(hid32.float()).all()),
+            f"whisper on fp32 frames: encode {enc32.dtype}, forward "
+            f"{hid32.dtype} {tuple(hid32.shape)}")
+    require(inst32 == want32, f"whisper on fp32 frames: flash instances "
+            f"{inst32}, want {want32}")
+    print(f"  bf16 weights on fp32 frames [1,{WHISPER_FRAMES},{cfg.d_model}], "
+          f"{tok32.shape[1]} tokens: encode {enc32.dtype}, forward's hidden "
+          f"state {hid32.dtype}, finite; flash instances {inst32} (encoder "
+          f"and cross-attention in fp32)", flush=True)
+    del fr32, enc32, hid32
     del q, k, v, qx, h, x, eng, params
     torch.cuda.empty_cache()
     out = {"launches": first[1]["flash_attention"], "encoder": enc,
@@ -1905,10 +1972,13 @@ def flash_bwd_phase(torch, dev, gen):
         reset_launch_counts()
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
-        inst = "mma_sync" if dtype == torch.bfloat16 else "cuda_core"
-        require(launch_counts()["flash_attention_bwd"] == 1
+        # every case is aligned bf16 at D 64 or 128 (wgmma) or fp32
+        inst = "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+        require(fa.choose_bwd_instance(q, k, v) == inst
+                and launch_counts()["flash_attention_bwd"] == 1
                 and instance_counts()["flash_attention_bwd"][inst] == 1,
-                f"{what}: backward launches {launch_counts()}")
+                f"{what}: backward launches {launch_counts()}, instances "
+                f"{instance_counts()['flash_attention_bwd']}, want {inst}")
         ref = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
         require(all(bool(torch.isfinite(g).all()) for g in got),
                 f"{what}: non-finite gradient")
@@ -1944,6 +2014,17 @@ def flash_bwd_phase(torch, dev, gen):
                 q, k, v, o, do, lse, **kw), 10)
             rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, do, lse, **kw), 2)
+            if inst == "wgmma":
+                # the earlier instance on the same operands, held and timed
+                # in the same call (uncounted)
+                old = fa._bwd_launch(q, k, v, o, do, lse, instance="mma_sync",
+                                     **kw)
+                a_old = fa.grad_agreement(old, ref)
+                require(a_old["ok"], f"{what}: mma_sync != plain "
+                        f"({bwd_readings(a_old)})")
+                rec["mma_sync_ms"] = time_ms(torch, lambda: fa._bwd_launch(
+                    q, k, v, o, do, lse, instance="mma_sync", **kw), 10)
+                del old
             if q_offset == 0:
                 # SDPA's backward on the same q and dO, k and v repeated to
                 # the q-heads outside the timing (its GQA backward may not
@@ -1963,8 +2044,11 @@ def flash_bwd_phase(torch, dev, gen):
                 rec["library_ms"] = None
             lib = (f", SDPA backward {rec['library_ms']:.4f} ms"
                    if rec["library_ms"] is not None else "")
-            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-                  f"ms{lib}, bound {bms:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+            if "mma_sync_ms" in rec:
+                lib += f", mma_sync {rec['mma_sync_ms']:.4f} ms"
+            print(f"    kernel [{inst}] {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms{lib}, bound {bms:.4f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB): {100 * bms / rec['ms']:.1f} % of the "
                   f"bound", flush=True)
         out[what] = rec
@@ -2052,7 +2136,7 @@ def train_phase(torch, np, dev, seed):
             f"llama train: launch counts {counts}, want {want} (16 forward "
             f"launches, 16 more in remat's recompute and 16 backward a step)")
     require(inst["flash_attention"]["wgmma"] == want["flash_attention"]
-            and inst["flash_attention_bwd"]["mma_sync"]
+            and inst["flash_attention_bwd"]["wgmma"]
             == want["flash_attention_bwd"],
             f"llama train: instances {inst}")
     require(fa.flash_attention.lse_launches == want["flash_attention"],
@@ -2077,7 +2161,7 @@ def train_phase(torch, np, dev, seed):
           f"the loss fell by {drop:.3f} (the check: at least {TRAIN_DROP}); per "
           f"step {want['flash_attention'] // TRAIN_STEPS} flash forward "
           f"launches (wgmma, lse written) and "
-          f"{want['flash_attention_bwd'] // TRAIN_STEPS} backward (mma_sync), "
+          f"{want['flash_attention_bwd'] // TRAIN_STEPS} backward (wgmma), "
           f"no plain attention", flush=True)
     llama = {"step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
              "losses": losses, "history": history, "n_params": n_params,
@@ -2211,17 +2295,25 @@ def train_phase(torch, np, dev, seed):
                 "whisper train: a non-finite loss or gradient norm")
     counts = launch_counts()
     per_step = wcfg.n_enc_layers + 2 * wcfg.n_layers
+    inst = instance_counts()
     require(counts["flash_attention"] == 2 * per_step * steps
             and counts["flash_attention_bwd"] == per_step * steps
             and sum(counts.values()) == 3 * per_step * steps,
             f"whisper train: launch counts {counts}")
+    # bf16 frames (launch.train's cast): every attention is aligned bf16 at
+    # D = 64, so both directions take wgmma
+    require(inst["flash_attention"]["wgmma"] == counts["flash_attention"]
+            and inst["flash_attention_bwd"]["wgmma"]
+            == counts["flash_attention_bwd"],
+            f"whisper train: instances {inst}")
     wpeak = torch.cuda.max_memory_allocated()
     print(f"  whisper-small ({wcfg.n_enc_layers} + {wcfg.n_layers} layers, d "
           f"{wcfg.d_model}, {wcfg.dtype}): batch {b} x {t} tokens on {frames} "
           f"frames, {steps} steps: {[round(x, 1) for x in times]} ms, losses "
           f"{[round(x, 4) for x in wlosses]}; per step {2 * per_step} flash "
-          f"forward and {per_step} backward launches (encoder non-causal, "
-          f"decoder causal, cross T != S); peak memory {wpeak / 2**30:.2f} GiB",
+          f"forward and {per_step} backward launches, all wgmma (encoder "
+          f"non-causal, decoder causal, cross T != S); peak memory "
+          f"{wpeak / 2**30:.2f} GiB",
           flush=True)
     whisper = {"step_ms": min(times[1:]), "losses": wlosses,
                "peak_gib": wpeak / 2**30}
@@ -3135,7 +3227,7 @@ def main(argv=None):
     moe_rec = moe_phase(torch, np, dev, args.seed, hold_flash)
 
     # ------------- the selective scan, jamba-v0.1-52b and whisper-small
-    scan_rec = scan_phase(torch, dev, gen)
+    scan_rec = scan_phase(torch, dev, gen, sms)
     jamba_rec = jamba_phase(torch, np, dev, args.seed, hold_flash)
     whisper_rec = whisper_phase(torch, np, dev, args.seed, hold_flash)
 
@@ -3326,12 +3418,14 @@ def main(argv=None):
         "max_abs_err": served["max_abs_err"], "ms": served["ms"],
         "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"], "library_ms": None,
-        "fp32_ops_ms": served["fp32_ops_ms"],
+        "fp32_ops_ms": served["fp32_ops_ms"], "mufu_ms": served["mufu_ms"],
+        "instance": "tma", "simple_ms": served["simple_ms"],
         "shape": f"bf16 u, dt [{b},{t},{SCAN_DI}], b, c [{b},{t},{SCAN_N}]; fp32 "
                  f"a, y and state",
         "path": "jamba-v0.1-52b (8 layers) serve prefill: 7 a prefill",
         "other_shapes": {f"{bb}x{tt}": {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+            "ms", "simple_ms", "plain_ms", "bound_ms", "mufu_ms",
+            "max_abs_err")}
             for (bb, tt), r in scan_rec.items() if (bb, tt) != (b, t)}})
     main_bwd = bwd_rec[BWD_CASES[0][0]]
     kernels.append({
@@ -3345,11 +3439,13 @@ def main(argv=None):
         "plain_ms": main_bwd["plain_ms"], "bound_ms": main_bwd["bound_ms"],
         "bound_by": main_bwd["bound_by"], "library_ms": main_bwd["library_ms"],
         "shape": main_bwd["shape"], "instance": main_bwd["instance"],
+        "mma_sync_ms": main_bwd.get("mma_sync_ms"),
         "path": f"llama3.2-1b training, {TRAIN_STEPS} steps: 16 a step "
                 f"(forward launches {train_rec['llama']['forward_launches']}, "
                 f"lse written)",
         "other_shapes": {what: {k: r.get(k) for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+            "shape", "instance", "ms", "mma_sync_ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")}
             for what, r in bwd_rec.items() if what != BWD_CASES[0][0]}})
     llama_train = train_rec["llama"]
     print(json.dumps({"train": {

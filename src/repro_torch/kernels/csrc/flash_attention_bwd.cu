@@ -21,39 +21,81 @@
 //   dQ = dS K scale,  dK = dS^T Q scale,
 // summed over the q-heads of each kv-head's group for dK and dV.
 //
-// Design: simple and right first.  Three kernels on the caller's stream:
-//   1. delta: one warp per (b, h, row), D = rowsum(dO o O) in fp32 into a
-//      scratch [B, Hq, T] the wrapper allocates.
-//   2. dK/dV: a block owns one (batch, kv-head, kv tile) and loops over the
-//      group's q-heads and over the q tiles that can see the tile (causal:
-//      from the tile's diagonal on).  Per q tile it recomputes S^T = K Q^T
-//      and dP^T = V dO^T, forms P^T and dS^T in registers, and accumulates
-//      dV += P^T dO and dK += dS^T Q in fp32 registers.  The GQA sum stays
-//      inside the block, so no atomics: every run gives the same bits.
-//   3. dQ: a block owns one (batch, q-head, q tile) and loops over the kv
-//      tiles up to its diagonal, accumulating dQ += dS K.
-// bf16 runs on mma.sync m16n8k16 (fp32 accumulators), four warps of 16
-// rows, the fragments of the forward's mma_sync instance: P^T and dS^T go
-// from the accumulators straight into A fragments, rounded to bf16 as the
-// forward rounds P.  Q and dO are staged in shared memory in both layouts
-// (row-major for S^T and dP^T, transposed for dK and dV), K transposed for
-// dQ.  fp32 runs on the CUDA cores (256 threads, P and dS through shared
-// memory).
+// Design.  Three instances; kernels/flash_attention.py's choose_bwd_instance
+// picks one before any launch.  Each runs a Delta pass and then two
+// kernels, dK/dV and dQ, so no gradient is summed across blocks: no
+// atomics, and every run gives the same bits (the train phase's bit-exact
+// resume relies on it).  That is choice (a) of the two deterministic
+// layouts: FlashAttention-3's single pass would accumulate dQ across the
+// kv-tile blocks in an fp32 scratch in an order fixed by a semaphore; the
+// two passes instead recompute S and dP in the dQ kernel, 7 products' work
+// for 5.
+//   0. delta: D = rowsum(dO o O) in fp32 into a scratch [B, Hq, Tpad]
+//      (bf16: D / 8 lanes a row, 16-byte loads; fp32: a warp a row); for
+//      the wgmma instance also lse in log2 units into a second scratch,
+//      rows t >= T padded (lse +inf, D 0) up to Tpad, a multiple of 128,
+//      so that every q tile reads whole lines.
+//   * wgmma (bf16, D 64 and 128, every operand's rows, bases and strides
+//     16-byte aligned: the training path).  Both kernels have two
+//     warpgroups of 64 rows and no producer warp: ptxas sizes a wgmma
+//     kernel's registers by whole warpgroups, so a producer warp cost a
+//     third warpgroup's share and left 168 registers a thread, which
+//     spilled the D = 128 dK/dV step and serialized its wgmma; with 256
+//     threads each may have 255.  TMA copies (128-byte swizzle) fill a
+//     four-stage ring behind full mbarriers: thread 0 issues the first
+//     four, and the warp that is the last of the eight to finish a step (a
+//     counter per stage in shared memory) refills its stage, so no warp
+//     waits for another.  (Thread 0 refilling with a wait of its own
+//     coupled the warpgroups and was slower; the producer-warp layout was
+//     faster at D = 64 alone: PERF.md.)
+//     dK/dV: a block owns one (batch, kv-head, 128-key tile), each
+//     consumer 64 of its keys, K and V loaded once; it walks the group's
+//     q-heads and, per head, the 64-row q tiles that can see the tile
+//     (causal: from the tile's diagonal on), so the GQA sum stays in the
+//     block.  A stage holds a q tile's Q and dO and its lse and D (1-D
+//     bulk copies from the padded scratch).  Per stage: S^T = K Q^T and
+//     dP^T = V dO^T as wgmma m64n64k16 with both operands K-major in shared
+//     memory; P^T = exp2(S^T scale log2e - lse) (ex2.approx) and dS^T =
+//     P^T o (dP^T - D) on the fp32 accumulators, the mask only on q tiles
+//     that cross the warpgroup's diagonal; then dV += P^T dO and dK += dS^T
+//     Q as wgmma m64nDk16 with P^T and dS^T from registers (the S^T
+//     accumulators of 16 q rows are the A fragment, rounded to bf16) and
+//     dO and Q read MN-major from the same stage: the transposes cost no
+//     store.  dK and dV stay in fp32 registers until the end.
+//     dQ: a block owns one (batch, q-head, 128-row q tile), Q and dO
+//     loaded once, and walks 64-key K and V tiles up to its diagonal:
+//     S = Q K^T and dP = dO V^T (m64n64k16, K-major), dS = P o (dP - D),
+//     dQ += dS K with K read MN-major.  Rows past T and rows that see no
+//     key have lse +inf, so P = 0 there and their gradients are 0, not
+//     NaN; keys past S are masked in dQ and never stored in dK/dV.
+//     In dQ, S and dP are two commit groups, so P is formed while dP is
+//     on the tensor cores; in dK/dV the same split (and dV issued before
+//     dS^T) measured slower, so each pair is one group there.  The two
+//     warpgroups overlap each other.
+//   * mma_sync (bf16 otherwise, and D = 32): mma.sync m16n8k16 (fp32
+//     accumulators), four warps of 16 rows, the fragments of the forward's
+//     mma_sync instance: P^T and dS^T go from the accumulators straight
+//     into A fragments, rounded to bf16 as the forward rounds P.  Q and dO
+//     are staged in shared memory in both layouts (row-major for S^T and
+//     dP^T, transposed for dK and dV), K transposed for dQ.
+//   * cuda_core (fp32): 256 threads, P and dS through shared memory.
 //
 // Bound on an H100 at llama3.2-1b's training shape (bf16 q [4,2048,32,64],
 // k and v [4,2048,8,64], causal): the five products take 10 D flops per
 // visible (row, key) pair and head, 2.5 times the forward's 68.7 GFLOP,
 // 172 GFLOP: 0.174 ms at 989 TFLOP/s; the 84 MB it must move take 0.025 ms,
-// so it is bound by operations.  This version is far from it: mma.sync
-// reaches about a third of wgmma's rate, each block restages Q and dO for
-// every kv tile, and S and dP are computed twice (once per kernel).  The
-// fast design, left for a later change: wgmma with TMA-fed operands and a
-// persistent grid, dQ accumulated by one kernel over kv tiles in the same
-// pass (FlashAttention-3's layout).
+// so it is bound by operations, and wgmma is the only full-rate path.
+// What holds the wgmma instance back: the two passes' 7 products for 5;
+// each step still ends on a wait for its last product (no overlap across
+// steps inside a warpgroup); the diagonal tiles are computed whole and
+// masked; and one exponential per (row, key) pair and head on 16
+// special-function lanes per SM, twice (once per pass).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -82,18 +124,30 @@ __device__ __forceinline__ bool visible(long long qpos, int kpos, int causal,
 __device__ __forceinline__ float as_float(float x) { return x; }
 __device__ __forceinline__ float as_float(bf16 x) { return __bfloat162float(x); }
 
-// ------------------------------------------------ 1. D = rowsum(dO o O)
+// ------------------------------------------------ 0. D = rowsum(dO o O)
+// delta is [B, Hq, Tpad]; rows t >= Tq get 0.  When lse2 is not null it
+// gets lse in log2 units in the same layout, +inf on those rows (the
+// wgmma instance reads both a q tile at a time).
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, int B, int Tq, int Hq, Strides os,
-                 Strides ds) {
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ lse2, int B, int Tq, int Tpad, int Hq,
+                 Strides os, Strides ds) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  if (row >= static_cast<long long>(B) * Hq * Tq) return;
+  if (row >= static_cast<long long>(B) * Hq * Tpad) return;
   const int lane = threadIdx.x % 32;
-  const int t = static_cast<int>(row % Tq);
-  const int h = static_cast<int>((row / Tq) % Hq);
-  const int b = static_cast<int>(row / (static_cast<long long>(Tq) * Hq));
+  const int t = static_cast<int>(row % Tpad);
+  const long long bh = row / Tpad;
+  const int h = static_cast<int>(bh % Hq);
+  const int b = static_cast<int>(bh / Hq);
+  if (t >= Tq) {
+    if (lane == 0) {
+      delta[row] = 0.f;
+      if (lse2 != nullptr) lse2[row] = INFINITY;
+    }
+    return;
+  }
   const T* orow = o + b * os.b + t * os.t + h * os.h;
   const T* drow = dout + b * ds.b + t * ds.t + h * ds.h;
   float acc = 0.f;
@@ -102,7 +156,49 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;  // delta is [B, Hq, T]: row's own index
+  if (lane == 0) {
+    delta[row] = acc;
+    if (lse2 != nullptr) lse2[row] = lse[bh * Tq + t] * LOG2E;
+  }
+}
+
+// The same for bf16, whose rows are 16-byte aligned: D / 8 lanes a row,
+// each loading 8 elements of O and of dO in one 16-byte load
+template <int D>
+__global__ void __launch_bounds__(256)
+    delta_bf16_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ delta,
+                      float* __restrict__ lse2, int B, int Tq, int Tpad, int Hq,
+                      Strides os, Strides ds) {
+  constexpr int LPR = D / 8;     // lanes a row
+  constexpr int RPW = 32 / LPR;  // rows a warp
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32) * RPW +
+      (threadIdx.x % 32) / LPR;
+  const int sub = threadIdx.x % LPR;
+  const bool in = row < static_cast<long long>(B) * Hq * Tpad;
+  const int t = static_cast<int>(row % Tpad);
+  const long long bh = row / Tpad;
+  const int h = static_cast<int>(bh % Hq);
+  const int b = static_cast<int>(bh / Hq);
+  float acc = 0.f;
+  if (in && t < Tq) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + t * os.t +
+                                                     h * os.h + 8 * sub);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * ds.b + t * ds.t +
+                                                     h * ds.h + 8 * sub);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc += as_float(oe[j]) * as_float(de[j]);
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off, LPR);
+  if (in && sub == 0) {
+    delta[row] = acc;  // 0 for rows t >= Tq
+    if (lse2 != nullptr) lse2[row] = t < Tq ? lse[bh * Tq + t] * LOG2E : INFINITY;
+  }
 }
 
 // ------------------------------------------------- bf16: mma.sync tiles
@@ -670,10 +766,549 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace cuda_core
 
+// --------------------------------- bf16 on Hopper: TMA ring and wgmma
+namespace wgmma_tc {
+
+using namespace hopper;
+
+// Two warpgroups and no producer warp: ptxas sizes the registers of a
+// kernel that issues wgmma by whole warpgroups, so a producer warp would
+// cost a third warpgroup's share (168 registers a thread); at 256 threads
+// each may have 255.  Thread 0 issues the first STAGES stages' copies;
+// after that, whichever warp is the last to finish a step refills its
+// stage (release below).
+constexpr int CONSUMERS = 2;                       // warpgroups of BR rows
+constexpr int THREADS = CONSUMERS * 128;
+constexpr int STAGES = 4;                          // ring depth
+constexpr int SW = 128;                            // TMA swizzle span, bytes
+constexpr int CE = SW / 2;                         // bf16 per box row
+constexpr int BR = 64;   // rows per consumer; q rows (dK/dV) or keys (dQ) a stage
+constexpr int BB = CONSUMERS * BR;  // keys (dK/dV) or q rows (dQ) per block
+
+template <int D>
+struct Geometry {
+  static constexpr int BIG = BB * D * 2;    // a tile of BB rows
+  static constexpr int SMALL = BR * D * 2;  // a tile of BR rows
+  // two BR-row tiles, then (dK/dV) the q tile's lse and D; 1024-aligned
+  static constexpr int STAGE = 2 * SMALL + 1024;
+  static constexpr size_t SMEM =
+      1024 + 2 * size_t(BIG) + STAGES * size_t(STAGE) + 8 * (1 + 2 * STAGES);
+};
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the box at (col, t, h, b) of a map whose (t, h, b) dims are ordered by
+// stride (see operand_map; 2 bits apiece: t in bits 0-1, h 2-3, b 4-5)
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, uint32_t order, int col,
+                                         int t, int h, int b) {
+  int c[4];
+  c[0] = col;
+  c[order & 3] = t;
+  c[(order >> 2) & 3] = h;
+  c[(order >> 4) & 3] = b;
+  tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
+}
+
+// `rows` rows of D bf16 from row t: D / CE boxes, box c at dst + c rows SW
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, uint32_t order,
+                                         int rows, int t, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / CE; ++c)
+    tma_rows(dst + c * rows * SW, map, bar, order, c * CE, t, h, b);
+}
+
+// wgmma descriptors of k-step kk of a tile whose boxes hold `rows` rows:
+// K-major (16 columns of D from `tile`, which may start inside a box at a
+// multiple of 8 rows), and MN-major (16 rows, all D columns: the
+// transposed read)
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int rows,
+                                          int kk) {
+  return smem_desc(tile + ((16 * kk) / CE) * rows * SW + ((16 * kk) % CE) * 2,
+                   16, 8 * SW, SW);
+}
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows,
+                                           int kk) {
+  return smem_desc(tile + kk * 16 * SW, rows * SW, 8 * SW, SW);
+}
+
+// acc[64 x D] += A (registers) B[16 x D] (MN-major)
+template <int D>
+__device__ __forceinline__ void rs_wgmma(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_bf16_rs_n64(acc, a, db);
+  } else {
+    wgmma_bf16_rs_n128(acc, a, db);
+  }
+}
+
+// the fp32 accumulators of a 64 x BR product as BR / 16 bf16 A fragments:
+// columns 16 kk .. 16 kk + 15 are the A fragment of k-step kk
+__device__ __forceinline__ void to_frags(uint32_t (&f)[BR / 16][4],
+                                         const float (&acc)[BR / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f[kk][r] = tensor_core::pack(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void zero(T (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = T(0);
+}
+
+// The end of step i for one warp: its lane 0 counts the warp in
+// done[stage], and the last of the block's 8 warps to finish the step
+// refills the stage with step i + STAGES (`issue(j)` loads step j into
+// stage j % STAGES).  No warp ever waits for another.
+template <typename Issue>
+__device__ __forceinline__ void release(uint32_t* done, int i, int n,
+                                        const Issue& issue) {
+  static_assert(CONSUMERS * 4 == 8, "the count below takes 8 warps a use");
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    __threadfence_block();
+    if ((atomicAdd(&done[i % STAGES], 1u) & 7u) == 7u) {  // the last warp
+      __threadfence_block();
+      if (i + STAGES < n) {
+        fence_proxy_async();
+        issue(i + STAGES);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// One dK/dV consumer warpgroup: BR keys, their dK and dV accumulators,
+// and its step over the ring's stage i (q rows q0 .. q0 + BR - 1 of one
+// q-head).  MASK steps are the q tiles with a row that does not see every
+// key of the warpgroup; the others run no mask code.
+template <int D>
+struct DkdvConsumer {
+  using G = Geometry<D>;
+  const uint8_t* Kw;  // this warpgroup's BR keys of the K and V tiles
+  const uint8_t* Vw;
+  const uint8_t* ring;
+  uint64_t* full;
+  int t4, krow;  // this thread's keys krow, krow + 8
+  long long q_offset;
+  float scale_log2;
+  float dka[D / 2], dva[D / 2];
+  float sacc[BR / 2], dpacc[BR / 2];  // S^T then P^T; dP^T then dS^T
+  uint32_t pf[BR / 16][4], sf[BR / 16][4];
+
+  // One commit group for S^T and dP^T, one for dV and dK: splitting them
+  // so that P^T is formed while dP^T runs was slower on the H100 (PERF.md)
+  template <bool MASK>
+  __device__ __forceinline__ void step(int i, int q0) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint8_t* Qt = ring + s * G::STAGE;
+    const uint8_t* dOt = Qt + G::SMALL;
+    const float* Ls = reinterpret_cast<const float*>(Qt + 2 * G::SMALL);
+    const float* Dl = Ls + BR;
+    // S^T = K Q^T and dP^T = V dO^T, both operands K-major
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_bf16_ss_n64(sacc, kmajor(Kw, BB, kc), kmajor(Qt, BR, kc),
+                        kc > 0 ? 1 : 0);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_bf16_ss_n64(dpacc, kmajor(Vw, BB, kc), kmajor(dOt, BR, kc),
+                        kc > 0 ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    // P^T = exp2(S^T scale log2e - lse) and dS^T = P^T o (dP^T - D): the
+    // accumulator of column c is q row q0 + c (lse +inf past T and for
+    // rows that see no key: P = 0)
+#pragma unroll
+    for (int c8 = 0; c8 < BR / 8; ++c8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * c8 + 2 * t4 + j;
+        const float l2 = Ls[col];
+        const float dl = Dl[col];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int e = 4 * c8 + 2 * rr + j;
+          float p = ex2(sacc[e] * scale_log2 - l2);
+          if constexpr (MASK)
+            p = q_offset + q0 + col >= krow + 8 * rr ? p : 0.f;
+          sacc[e] = p;
+          dpacc[e] = p * (dpacc[e] - dl);
+        }
+      }
+    to_frags(pf, sacc);
+    to_frags(sf, dpacc);
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) rs_wgmma<D>(dva, pf[kk], mnmajor(dOt, BR, kk));
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) rs_wgmma<D>(dka, sf[kk], mnmajor(Qt, BR, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {  // the A operands stay live until
+      fence_regs(pf[kk]);                   // their products are done
+      fence_regs(sf[kk]);
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap dmap,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int Tq, int Tpad, int S, int Hq,
+                      int group, Strides dks, Strides dvs, uint32_t qord,
+                      uint32_t kord, uint32_t vord, uint32_t dord, int causal,
+                      long long q_offset, float scale) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_bw[];
+  // swizzled tiles repeat every 8 rows of SW bytes: align to 1024
+  uint8_t* Ks = smem_bw + ((1024 - (smem_u32(smem_bw) & 1023)) & 1023);
+  uint8_t* Vs = Ks + G::BIG;
+  uint8_t* ring = Vs + G::BIG;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE);
+  uint64_t* full = kvbar + 1;
+  uint32_t* done = reinterpret_cast<uint32_t*>(full + STAGES);
+
+  const int k0 = blockIdx.x * BB;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  // the warp index through a shuffle: uniform to the compiler (wgmma on a
+  // path it takes for divergent is serialized)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  // the q tiles from the one that holds the first row seeing a key of the
+  // block, for each q-head of the group: n steps in all
+  const long long first = causal ? max(0LL, k0 - q_offset) : 0LL;
+  const int n_qt = (Tq + BR - 1) / BR;
+  const int qt0 = first >= Tq ? n_qt : static_cast<int>(first / BR);
+  const int per_head = n_qt - qt0;
+  const int n = group * per_head;
+
+  // step j's q tile, dO tile, lse and D into stage j % STAGES
+  auto issue = [&](int j) {
+    const int s = j % STAGES;
+    const int h = hk * group + j / per_head;
+    const int q0 = (qt0 + j % per_head) * BR;
+    const long long at = (static_cast<long long>(b) * Hq + h) * Tpad + q0;
+    uint8_t* st = ring + s * G::STAGE;
+    mbar_expect_tx(&full[s], 2 * G::SMALL + 2 * BR * 4);
+    tma_tile<D>(st, &qmap, &full[s], qord, BR, q0, h, b);
+    tma_tile<D>(st + G::SMALL, &dmap, &full[s], dord, BR, q0, h, b);
+    bulk_load(st + 2 * G::SMALL, lse2 + at, BR * 4, &full[s]);
+    bulk_load(st + 2 * G::SMALL + BR * 4, delta + at, BR * 4, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_expect_tx(kvbar, 2 * G::BIG);
+    tma_tile<D>(Ks, &kmap, kvbar, kord, BB, k0, hk, b);
+    tma_tile<D>(Vs, &vmap, kvbar, vord, BB, k0, hk, b);
+    for (int j = 0; j < min(STAGES, n); ++j) issue(j);
+  }
+  __syncthreads();
+
+  DkdvConsumer<D> c;
+  const int wg = warp / 4;
+  const int kw0 = k0 + BR * wg;  // this warpgroup's first key
+  c.Kw = Ks + wg * BR * SW;
+  c.Vw = Vs + wg * BR * SW;
+  c.ring = ring;
+  c.full = full;
+  c.t4 = lane % 4;
+  c.krow = kw0 + 16 * (warp % 4) + lane / 4;
+  c.q_offset = q_offset;
+  c.scale_log2 = scale * LOG2E;
+  zero(c.dka);
+  zero(c.dva);
+  zero(c.sacc);
+  zero(c.dpacc);
+  // q tiles before qt_edge hold a row that does not see every key of this
+  // warpgroup: row q sees them all when q_offset + q >= kw0 + BR - 1
+  int qt_edge = qt0;
+  if (causal) {
+    const long long need = kw0 + BR - 1 - q_offset;
+    if (need > 0)
+      qt_edge = static_cast<int>(min(static_cast<long long>(n_qt),
+                                     max(static_cast<long long>(qt0),
+                                         (need + BR - 1) / BR)));
+  }
+  mbar_wait(kvbar, 0);
+  int i = 0;
+  for (int gi = 0; gi < group; ++gi) {
+    int qt = qt0;
+    for (; qt < qt_edge; ++qt, ++i) {
+      c.template step<true>(i, qt * BR);
+      release(done, i, n, issue);
+    }
+    for (; qt < n_qt; ++qt, ++i) {
+      c.template step<false>(i, qt * BR);
+      release(done, i, n, issue);
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int gk = c.krow + 8 * rr;
+    if (gk >= S) continue;  // keys past S: never stored
+    bf16* krow = dk + b * dks.b + gk * dks.t + hk * dks.h;
+    bf16* vrow = dv + b * dvs.b + gk * dvs.t + hk * dvs.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(krow + 8 * j + 2 * c.t4) = tensor_core::pack(
+          c.dka[4 * j + 2 * rr] * scale, c.dka[4 * j + 2 * rr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + 8 * j + 2 * c.t4) = tensor_core::pack(
+          c.dva[4 * j + 2 * rr], c.dva[4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+// One dQ consumer warpgroup: BR q rows, their dQ accumulator, and its step
+// over kv tile t.  MASK steps are the tiles that cross the diagonal of one
+// of its rows or the end of S.
+template <int D>
+struct DqConsumer {
+  using G = Geometry<D>;
+  const uint8_t* Qw;  // this warpgroup's BR rows of the Q and dO tiles
+  const uint8_t* dOw;
+  const uint8_t* ring;
+  uint64_t* full;
+  int t4, qrow, S, causal;  // this thread's rows qrow, qrow + 8
+  long long q_offset;
+  float scale_log2;
+  float l2[2], dl[2];  // lse (log2 units) and D of the two rows
+  float dqa[D / 2];
+  float sacc[BR / 2], dpacc[BR / 2];  // S then P; dP then dS
+  uint32_t sf[BR / 16][4];
+
+  // S and dP are issued as two groups; P is formed while dP is on the
+  // tensor cores
+  template <bool MASK>
+  __device__ __forceinline__ void step(int t) {
+    const int s = t % STAGES;
+    const int k0 = t * BR;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint8_t* Kt = ring + s * G::STAGE;
+    const uint8_t* Vt = Kt + G::SMALL;
+    // S = Q K^T and dP = dO V^T, both operands K-major
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_bf16_ss_n64(sacc, kmajor(Qw, BB, kc), kmajor(Kt, BR, kc),
+                        kc > 0 ? 1 : 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_bf16_ss_n64(dpacc, kmajor(dOw, BB, kc), kmajor(Vt, BR, kc),
+                        kc > 0 ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S is done; dP may still run
+    fence_regs(sacc);
+    // P = exp2(S scale log2e - lse) on the visible keys
+#pragma unroll
+    for (int c8 = 0; c8 < BR / 8; ++c8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int e = 4 * c8 + 2 * rr + j;
+          float p = ex2(sacc[e] * scale_log2 - l2[rr]);
+          if constexpr (MASK) {
+            const int kpos = k0 + 8 * c8 + 2 * t4 + j;
+            const bool ok =
+                (kpos < S) & (!causal | (q_offset + qrow + 8 * rr >= kpos));
+            p = ok ? p : 0.f;
+          }
+          sacc[e] = p;
+        }
+    wgmma_wait<0>();  // dP is done
+    fence_regs(dpacc);
+    // dS = P o (dP - D)
+#pragma unroll
+    for (int e = 0; e < BR / 2; ++e) dpacc[e] = sacc[e] * (dpacc[e] - dl[(e / 2) % 2]);
+    to_frags(sf, dpacc);
+    // dQ += dS K, K read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) rs_wgmma<D>(dqa, sf[kk], mnmajor(Kt, BR, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) fence_regs(sf[kk]);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int Tq, int Tpad, int S, int Hq, int group, Strides dqs,
+                    uint32_t qord, uint32_t kord, uint32_t vord, uint32_t dord,
+                    int causal, long long q_offset, float scale) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_bw[];
+  uint8_t* Qs = smem_bw + ((1024 - (smem_u32(smem_bw) & 1023)) & 1023);
+  uint8_t* dOs = Qs + G::BIG;
+  uint8_t* ring = dOs + G::BIG;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE);
+  uint64_t* full = qbar + 1;
+  uint32_t* done = reinterpret_cast<uint32_t*>(full + STAGES);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * BB;
+  const int hk = h / group;
+  const int n_tiles = (kv_extent(q0, BB, Tq, S, causal, q_offset) + BR - 1) / BR;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  // kv tile j's K and V into stage j % STAGES
+  auto issue = [&](int j) {
+    const int s = j % STAGES;
+    uint8_t* st = ring + s * G::STAGE;
+    mbar_expect_tx(&full[s], 2 * G::SMALL);
+    tma_tile<D>(st, &kmap, &full[s], kord, BR, j * BR, hk, b);
+    tma_tile<D>(st + G::SMALL, &vmap, &full[s], vord, BR, j * BR, hk, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_expect_tx(qbar, 2 * G::BIG);
+    tma_tile<D>(Qs, &qmap, qbar, qord, BB, q0, h, b);
+    tma_tile<D>(dOs, &dmap, qbar, dord, BB, q0, h, b);
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) issue(j);
+  }
+  __syncthreads();
+
+  DqConsumer<D> c;
+  const int wg = warp / 4;
+  const int row0 = q0 + BR * wg;  // this warpgroup's first row
+  c.Qw = Qs + wg * BR * SW;
+  c.dOw = dOs + wg * BR * SW;
+  c.ring = ring;
+  c.full = full;
+  c.t4 = lane % 4;
+  c.qrow = row0 + 16 * (warp % 4) + lane / 4;
+  c.S = S;
+  c.causal = causal;
+  c.q_offset = q_offset;
+  c.scale_log2 = scale * LOG2E;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {  // rows < q0 + BB <= Tpad
+    const long long at = (static_cast<long long>(b) * Hq + h) * Tpad + c.qrow + 8 * rr;
+    c.l2[rr] = lse2[at];
+    c.dl[rr] = delta[at];
+  }
+  zero(c.dqa);
+  zero(c.sacc);
+  zero(c.dpacc);
+  // tiles before t_edge end at or before this warpgroup's first row's
+  // diagonal and inside S: they need no mask
+  const long long seen =
+      causal ? max(0LL, q_offset + row0 + 1) : static_cast<long long>(S);
+  const int t_edge = static_cast<int>(
+      min(static_cast<long long>(n_tiles), min(seen, static_cast<long long>(S)) / BR));
+  mbar_wait(qbar, 0);
+  int t = 0;
+  for (; t < t_edge; ++t) {
+    c.template step<false>(t);
+    release(done, t, n_tiles, issue);
+  }
+  for (; t < n_tiles; ++t) {
+    c.template step<true>(t);
+    release(done, t, n_tiles, issue);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int gq = c.qrow + 8 * rr;
+    if (gq >= Tq) continue;
+    bf16* row = dq + b * dqs.b + gq * dqs.t + h * dqs.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * c.t4) = tensor_core::pack(
+          c.dqa[4 * j + 2 * rr] * scale, c.dqa[4 * j + 2 * rr + 1] * scale);
+  }
+}
+
+// A [B, rows, H, D] bf16 operand as a 4-D tensor map whose dims after D
+// are ordered by stride, loaded in boxes of `rows` x CE columns (as
+// flash_attention.cu's operand_map).  Sets `order` (see tma_rows); false
+// when cuTensorMapEncodeTiled refuses it.
+inline bool operand_map(CUtensorMap* map, uint32_t* order, const void* base,
+                        int B, int T, int H, const Strides& st, int D,
+                        int rows) {
+  struct Dim {
+    uint64_t extent, stride;
+    uint32_t box;
+    int logical;  // 0 t, 1 h, 2 b
+  } dims[3] = {{uint64_t(T > 0 ? T : 1), uint64_t(st.t) * 2, uint32_t(rows), 0},
+               {uint64_t(H), uint64_t(st.h) * 2, 1u, 1},
+               {uint64_t(B), uint64_t(st.b) * 2, 1u, 2}};
+  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
+    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
+      const Dim tmp = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = tmp;
+    }
+  uint64_t extent[4] = {uint64_t(D)}, stride[3];
+  uint32_t box[4] = {uint32_t(CE)};
+  *order = 0;
+  for (int i = 0; i < 3; ++i) {
+    extent[i + 1] = dims[i].extent;
+    stride[i] = dims[i].stride;
+    box[i + 1] = dims[i].box;
+    *order |= uint32_t(i + 1) << (2 * dims[i].logical);
+  }
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, extent,
+                  stride, box, SW);
+}
+
+}  // namespace wgmma_tc
+
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   float* delta;
+  float* lse2;  // the wgmma instance's lse in log2 units, or null
+  int Tpad;     // the delta (and lse2) scratch's row length
   void *dq, *dk, *dv;
   int B, Tq, S, Hq, Hkv, group;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
@@ -691,12 +1326,20 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 template <typename T, int D>
 int run_delta(const Args& a) {
-  const long long rows = static_cast<long long>(a.B) * a.Hq * a.Tq;
+  const long long rows = static_cast<long long>(a.B) * a.Hq * a.Tpad;
   if (rows == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((rows + 7) / 8);
-  delta_kernel<T, D><<<blocks, 256, 0, a.st>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.B,
-      a.Tq, a.Hq, a.os, a.dos);
+  if constexpr (sizeof(T) == 2) {  // bf16 rows are 16-byte aligned
+    constexpr long long per_block = 8 * (32 / (D / 8));
+    const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+    delta_bf16_kernel<D><<<blocks, 256, 0, a.st>>>(
+        static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse,
+        a.delta, a.lse2, a.B, a.Tq, a.Tpad, a.Hq, a.os, a.dos);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((rows + 7) / 8);
+    delta_kernel<T, D><<<blocks, 256, 0, a.st>>>(
+        static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse,
+        a.delta, a.lse2, a.B, a.Tq, a.Tpad, a.Hq, a.os, a.dos);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -755,26 +1398,84 @@ int run_fp32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16-byte loads and TMA need 16-byte aligned rows: base pointers and every
+// stride a multiple of 8 bf16
+bool aligned8(const void* p, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 &&
+         s.t % 8 == 0 && s.h % 8 == 0;
+}
+
+template <int D>
+int run_wgmma(const Args& a) {
+  using namespace wgmma_tc;
+  using G = Geometry<D>;
+  if (!aligned8(a.q, a.qs) || !aligned8(a.k, a.ks) || !aligned8(a.v, a.vs) ||
+      !aligned8(a.dout, a.dos) || a.lse2 == nullptr || a.Tpad % BB != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = run_delta<bf16, D>(a);
+  if (err) return err;
+  // dK/dV take q tiles of BR rows and K, V tiles of BB keys; dQ the other
+  // way round
+  CUtensorMap qs, ks, vs, ds, qb, kb, vb, db;
+  uint32_t oqs, oks, ovs, ods, oqb, okb, ovb, odb;
+  if (!operand_map(&qs, &oqs, a.q, a.B, a.Tq, a.Hq, a.qs, D, BR) ||
+      !operand_map(&ds, &ods, a.dout, a.B, a.Tq, a.Hq, a.dos, D, BR) ||
+      !operand_map(&kb, &okb, a.k, a.B, a.S, a.Hkv, a.ks, D, BB) ||
+      !operand_map(&vb, &ovb, a.v, a.B, a.S, a.Hkv, a.vs, D, BB) ||
+      !operand_map(&qb, &oqb, a.q, a.B, a.Tq, a.Hq, a.qs, D, BB) ||
+      !operand_map(&db, &odb, a.dout, a.B, a.Tq, a.Hq, a.dos, D, BB) ||
+      !operand_map(&ks, &oks, a.k, a.B, a.S, a.Hkv, a.ks, D, BR) ||
+      !operand_map(&vs, &ovs, a.v, a.B, a.S, a.Hkv, a.vs, D, BR))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.S > 0) {  // with T = 0, dK and dV are written as zeros
+    if ((err = set_smem(dkdv_wgmma_kernel<D>, G::SMEM))) return err;
+    dkdv_wgmma_kernel<D><<<dim3((a.S + BB - 1) / BB, a.Hkv, a.B), THREADS,
+                           G::SMEM, a.st>>>(
+        qs, kb, vb, ds, a.lse2, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.Tq, a.Tpad, a.S, a.Hq, a.group, a.dks,
+        a.dvs, oqs, okb, ovb, ods, a.causal, a.q_offset, a.scale);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  }
+  if (a.Tq == 0) return 0;
+  if ((err = set_smem(dq_wgmma_kernel<D>, G::SMEM))) return err;
+  dq_wgmma_kernel<D><<<dim3((a.Tq + BB - 1) / BB, a.Hq, a.B), THREADS, G::SMEM,
+                       a.st>>>(
+      qb, ks, vs, db, a.lse2, a.delta, static_cast<bf16*>(a.dq), a.Tq, a.Tpad,
+      a.S, a.Hq, a.group, a.dqs, oqb, oks, ovs, odb, a.causal, a.q_offset,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int run(int instance, const Args& a) {
+  if (instance == 2) {
+    if constexpr (D == 64 || D == 128) return run_wgmma<D>(a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return instance == 1 ? run_bf16<D>(a) : run_fp32<D>(a);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  `instance` 0 takes fp32
-// operands (CUDA cores), 1 bf16 (mma.sync).  Strides are in elements, in
-// the order (batch, sequence, head), for q, k, v, o, dO, dq, dk, dv; D has
-// unit stride, and in bf16 every row is 16-byte aligned.  lse and the
-// scratch `delta` are contiguous fp32 [B, Hq, Tq].  Launches the three
-// kernels on `stream` and returns cudaGetLastError() after the last, the
-// first error, or cudaErrorInvalidValue for a head dim without an instance
-// (32, 64, 128), an unknown instance, a head count that is not a multiple
-// of the kv heads, or a grid too large.
+// operands (CUDA cores), 1 bf16 (mma.sync), 2 bf16 (wgmma; D 64 or 128,
+// every operand 16-byte aligned).  Strides are in elements, in the order
+// (batch, sequence, head), for q, k, v, o, dO, dq, dk, dv; D has unit
+// stride, and in bf16 every row is 16-byte aligned.  lse is contiguous fp32
+// [B, Hq, Tq]; the scratch `delta` is fp32 [B, Hq, Tpad] with Tpad = Tq
+// for instances 0 and 1, and for instance 2 a multiple of 128 at least Tq,
+// with `lse2` a second scratch of that shape (null for 0 and 1).
+// Launches the three kernels on `stream` and returns cudaGetLastError()
+// after the last, the first error, or cudaErrorInvalidValue for a head dim
+// without an instance (32, 64, 128; wgmma 64 and 128), an unknown
+// instance, wgmma operands that are not 16-byte aligned or whose tensor
+// map CUDA refuses, a head count that is not a multiple of the kv heads, or
+// a grid too large.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int instance, int B, int Tq, int S, int Hq, int Hkv, int D,
+    const void* dout, const void* lse, void* delta, void* lse2, int Tpad,
+    void* dq, void* dk, void* dv, int instance, int B, int Tq, int S, int Hq,
+    int Hkv, int D,
     long long qsb, long long qst, long long qsh, long long ksb, long long kst,
     long long ksh, long long vsb, long long vst, long long vsh, long long osb,
     long long ost, long long osh, long long dosb, long long dost,
@@ -783,11 +1484,13 @@ extern "C" int flash_attention_bwd_launch(
     long long dvst, long long dvsh, int causal, long long q_offset,
     float scale, void* stream) {
   if (B == 0 || Hq == 0 || (Tq == 0 && S == 0)) return 0;
-  if (instance < 0 || instance > 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      Hq > 65535 || B > 65535 || Tq < 0 || S < 0)
+  if (instance < 0 || instance > 2 || Hkv < 1 || Hq % Hkv != 0 ||
+      Hq > 65535 || B > 65535 || Tq < 0 || S < 0 || Tpad < Tq ||
+      (instance < 2 && (Tpad != Tq || lse2 != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, dout, static_cast<const float*>(lse),
-         static_cast<float*>(delta), dq, dk, dv, B, Tq, S, Hq, Hkv, Hq / Hkv,
+         static_cast<float*>(delta), static_cast<float*>(lse2), Tpad,
+         dq, dk, dv, B, Tq, S, Hq, Hkv, Hq / Hkv,
          Strides{qsb, qst, qsh}, Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh},
          Strides{osb, ost, osh}, Strides{dosb, dost, dosh},
          Strides{dqsb, dqst, dqsh}, Strides{dksb, dkst, dksh},

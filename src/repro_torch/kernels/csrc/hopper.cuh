@@ -1,5 +1,6 @@
-// Hopper building blocks shared by the kernels (flash_attention.cu's wgmma
-// instance, modmatmul_tc.cu, polyeval.cu, rwkv6.cu): mbarriers, TMA tile
+// Hopper building blocks shared by the kernels (flash_attention.cu's and
+// flash_attention_bwd.cu's wgmma instances, modmatmul_tc.cu, polyeval.cu,
+// rwkv6.cu, selective_scan.cu): mbarriers, TMA tile
 // loads and 1-D bulk copies, wgmma shared-memory descriptors and the wgmma
 // instructions the kernels issue, plus the host-side tensor-map encoder.
 //
@@ -104,6 +105,32 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// TMA tile store: the box at the given coordinates (innermost first) from
+// shared memory at src, in this thread's current bulk group; elements
+// outside the tensor are not written.  The writes to src must be fenced
+// (fence_proxy_async) by the threads that made them first.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// closes this thread's current bulk group of stores
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read their
+// shared-memory sources
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // orders this thread's earlier shared-memory accesses (generic proxy)
 // before its later bulk copies (async proxy) into the same buffers
 __device__ __forceinline__ void fence_proxy_async() {
@@ -184,6 +211,24 @@ __device__ __forceinline__ void wgmma_bf16_ss_n128(float (&d)[64], uint64_t da, 
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
       "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// bf16_ss_n64: D[64x64] (+)= A[64x16] B[16x64], both K-major in shared
+// memory (flash_attention_bwd.cu's S^T, dP^T, S and dP tiles)
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -36,9 +36,12 @@ requires grad), :func:`flash_attention` runs through
 log-sum-exp (``lse [B, Hq, T]``, fp32; counted in
 ``flash_attention.lse_launches``, which the serve path leaves at 0), and
 the backward is :func:`flash_attention_bwd`, the hand-written kernels of
-``csrc/flash_attention_bwd.cu`` (``mma_sync`` for bf16, ``cuda_core`` for
-fp32; launches in ``flash_attention_bwd.launches`` and ``.instances``),
-which replace the XLA autodiff of the reference's ``attention_chunked``.
+``csrc/flash_attention_bwd.cu`` (launches in ``flash_attention_bwd
+.launches`` and ``.instances``), which replace the XLA autodiff of the
+reference's ``attention_chunked``.  :func:`choose_bwd_instance` picks
+``wgmma`` (bf16 at D 64 and 128 with aligned rows: TMA and wgmma, the
+training path), ``mma_sync`` (other bf16) or ``cuda_core`` (fp32);
+``_bwd_launch(..., instance=...)`` runs one it would not pick.
 On the CPU both directions take their plain versions
 (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`).
 :func:`grad_agreement` holds the backward kernel against its plain
@@ -243,7 +246,8 @@ def _lib():
 def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 24
                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                       ctypes.c_void_p])
@@ -266,6 +270,24 @@ def choose_instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
             return "mma_sync"
     return "wgmma"
+
+
+def choose_bwd_instance(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> str:
+    """The backward kernel that serves these operands on the card.
+
+    ``"cuda_core"`` for fp32.  For bf16, ``"wgmma"`` at head dims 64 and
+    128 when :func:`choose_instance` would take the forward's ``wgmma``
+    instance (16-byte aligned bases, strides multiples of 8 elements), else
+    ``"mma_sync"`` (D = 32, and rows that are not 16-byte aligned, which
+    the wrapper copies).  ``do`` and ``o`` do not choose: the wrapper copies
+    one whose rows are not aligned.  A pure function of dtype, head dim,
+    strides and pointers, so the CPU tests can ask it.
+    """
+    instance = choose_instance(q, k, v)
+    if instance == "wgmma" and q.shape[-1] not in WGMMA_BWD_HEAD_DIMS:
+        return "mma_sync"
+    return instance
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -397,8 +419,10 @@ flash_attention.instances = dict.fromkeys(INSTANCES, 0)
 flash_attention.lse_launches = 0
 
 # the backward's instances, as its C launcher numbers them
-_BWD_INSTANCE_IDS = {"mma_sync": 1, "cuda_core": 0}
+_BWD_INSTANCE_IDS = {"wgmma": 2, "mma_sync": 1, "cuda_core": 0}
 BWD_INSTANCES = tuple(_BWD_INSTANCE_IDS)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+_WGMMA_BWD_ROWS = 128   # the wgmma instance's q tile: its scratch's row pad
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
@@ -419,14 +443,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient of the output, and ``lse [B, Hq, T]`` (fp32), the forward's
     per-row log-sum-exp; each in its operand's shape and dtype.
 
-    On the card (head dims 32, 64, 128) bf16 takes the ``mma_sync``
-    instance and fp32 the ``cuda_core`` one, three kernels in one launch
+    On the card (head dims 32, 64, 128) :func:`choose_bwd_instance` picks
+    ``wgmma``, ``mma_sync`` or ``cuda_core``, three kernels in one launch
     counted in ``flash_attention_bwd.launches`` and ``.instances``; a CPU
     tensor takes :func:`flash_attention_bwd_plain`.  Nothing falls back.
     """
     _check(q, k, v)
     b, t, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ShapeContractError(
@@ -444,29 +467,54 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
                          f"{q.device}")
-    if d not in HEAD_DIMS:
+    instance = choose_bwd_instance(q, k, v)
+    grads = _bwd_launch(q, k, v, o, do, lse, instance=instance, causal=causal,
+                        q_offset=q_offset, scale=scale)
+    _build.count(flash_attention_bwd, instance)
+    return grads
+
+
+def _bwd_launch(q, k, v, o, do, lse, *, instance: str, causal: bool = True,
+                q_offset: int = 0, scale: Optional[float] = None):
+    """Launch one backward instance on checked CUDA operands, uncounted: the
+    wrapper's path after :func:`choose_bwd_instance`, and the way to time
+    or check an instance the chooser would not pick."""
+    if instance not in BWD_INSTANCES:
+        raise ValueError(f"unknown flash_attention_bwd instance {instance!r}; "
+                         f"known: {BWD_INSTANCES}")
+    if (instance == "cuda_core") != (q.dtype == torch.float32):
+        raise TypeError(f"the {instance} backward does not take {q.dtype}")
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    dims = WGMMA_BWD_HEAD_DIMS if instance == "wgmma" else HEAD_DIMS
+    if d not in dims:
         raise ShapeContractError(
-            f"the flash_attention_bwd kernel takes head dims {HEAD_DIMS}, got "
-            f"{d}", shapes=(q.shape, k.shape, v.shape))
-    instance = "mma_sync" if q.dtype == torch.bfloat16 else "cuda_core"
-    ops = [_rows16(x) if instance == "mma_sync" or x.stride(3) != 1 else x
+            f"the flash_attention_bwd {instance} kernel takes head dims "
+            f"{dims}, got {d}", shapes=(q.shape, k.shape, v.shape))
+    bf16 = q.dtype == torch.bfloat16
+    ops = [_rows16(x) if bf16 or x.stride(3) != 1 else x
            for x in (q, k, v, o, do)]
     dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    # the wgmma instance reads D and lse (log2 units) a whole q tile at a
+    # time from scratch rows padded to its tile
+    tpad = -(-t // _WGMMA_BWD_ROWS) * _WGMMA_BWD_ROWS if instance == "wgmma" else t
+    delta = torch.empty((b, hq, tpad), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta) if instance == "wgmma" else None
     scale = d ** -0.5 if scale is None else scale
     strides = [st for x in (*ops, dq, dk, dv) for st in x.stride()[:3]]
     lse = lse.contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib()(*(x.data_ptr() for x in ops), lse.data_ptr(),
-                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                         dv.data_ptr(), _BWD_INSTANCE_IDS[instance], b, t, s, hq,
-                         hkv, d, *strides, int(causal), int(q_offset),
-                         float(scale), stream)
+                         delta.data_ptr(),
+                         None if lse2 is None else lse2.data_ptr(), tpad,
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         _BWD_INSTANCE_IDS[instance], b, t, s, hq, hkv, d,
+                         *strides, int(causal), int(q_offset), float(scale),
+                         stream)
     _build.check(err, f"flash_attention_bwd ({instance})")
-    _build.count(flash_attention_bwd, instance)
     return dq, dk, dv
 
 

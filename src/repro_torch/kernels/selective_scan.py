@@ -14,18 +14,27 @@ multiplied.
 
 A port-only kernel: the JAX package computes the scan in plain JAX (a
 ``lax.scan`` over chunks with a ``lax.associative_scan`` inside each), not
-in a Pallas kernel.  The CUDA kernel (``csrc/selective_scan.cu``) gives
-each thread one (batch, channel, state), the N states of a channel on N
-lanes of a warp, keeps h in a register for all of T, stages tiles of steps
-in shared memory and sums y over the lanes with shuffles; the source
-states its bound and design.  N is 8, 16 or 32 on the card.
+in a Pallas kernel.  The CUDA kernels (``csrc/selective_scan.cu``) keep h in
+registers for all of T; two instances, of which :func:`choose_instance`
+picks one before any launch:
+
+* ``tma``: 4 states a thread, tiles of u, dt, b and c brought by TMA
+  through a three-stage ring, the exponential as ``ex2.approx``; for
+  operands whose bases are 16-byte aligned and whose batch and step
+  strides are multiples of 16 bytes (the served layout);
+* ``simple``: one thread per (batch, channel, state), tiles staged by
+  plain loads, y summed over the state lanes with shuffles, for the rest.
+
+The source states the bound and design.  N is 8, 16 or 32 on the card.
 
 The wrapper checks its operands, allocates the outputs with
 ``torch.empty``, launches on the current stream and counts the launch in
-``selective_scan.launches``.  A CPU tensor takes the plain version
-(:func:`selective_scan_plain`, the reference's chunked associative scan,
-which counts its calls in ``selective_scan_plain.calls``); a CUDA tensor
-launches the kernel or raises.
+``selective_scan.launches`` and ``selective_scan.instances[name]``;
+``_launch(..., instance=...)`` runs one the chooser would not pick.  A
+CPU tensor takes the plain version (:func:`selective_scan_plain`, the
+reference's chunked associative scan, which counts its calls in
+``selective_scan_plain.calls``); a CUDA tensor launches the kernel or
+raises.
 
 The kernel has no backward yet: on a CUDA tensor under autograd (an
 operand that requires grad) the wrapper raises ``NotImplementedError``
@@ -50,11 +59,15 @@ from ..mpc.errors import ShapeContractError
 from . import _build
 from .rwkv6 import agreement
 
-__all__ = ["agreement", "selective_scan", "selective_scan_plain", "STATES"]
+__all__ = ["agreement", "choose_instance", "selective_scan",
+           "selective_scan_plain", "STATES"]
 
 CHUNK = 256                     # SSMConfig.chunk: the plain version's window
 STATES = (8, 16, 32)            # the kernel's N instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's instances, as its C launcher numbers them
+_INSTANCE_IDS = {"tma": 1, "simple": 0}
+INSTANCES = tuple(_INSTANCE_IDS)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -120,10 +133,24 @@ selective_scan_plain.calls = 0
 def _lib():
     lib = _build.load("selective_scan")
     fn = lib.selective_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def choose_instance(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
+                    c_t: torch.Tensor) -> str:
+    """The kernel that serves these operands on the card: ``"tma"`` when
+    every operand's base address is 16-byte aligned and its batch and step
+    strides are multiples of 16 bytes (TMA moves whole 16-byte units), else
+    ``"simple"``.  A pure function of dtype, strides and pointers, so the
+    CPU tests can ask it."""
+    for x in (u, dt, b_t, c_t):
+        size = x.element_size()
+        if x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:2]):
+            return "simple"
+    return "tma"
 
 
 def _check(u, dt, a, b_t, c_t) -> None:
@@ -178,7 +205,6 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise NotImplementedError(
             "the selective_scan kernel has no backward yet (ROADMAP queue 1, "
             "item 15): hybrid (jamba) training runs on the CPU")
-    b, t, di = u.shape
     n = a.shape[1]
     if n not in STATES:
         raise ShapeContractError(
@@ -186,6 +212,23 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             shapes=(a.shape,))
     if any(x.stride(2) != 1 for x in (u, dt, b_t, c_t)):
         raise ValueError("selective_scan needs unit stride along the last dim")
+    instance = choose_instance(u, dt, b_t, c_t)
+    out = _launch(u, dt, a, b_t, c_t, instance=instance,
+                  return_state=return_state)
+    _build.count(selective_scan, instance)
+    return out
+
+
+def _launch(u, dt, a, b_t, c_t, *, instance: str,
+            return_state: bool = False) -> Result:
+    """Launch one instance on checked CUDA operands, uncounted: the
+    wrapper's path after :func:`choose_instance`, and the way to time or
+    check an instance the chooser would not pick."""
+    if instance not in INSTANCES:
+        raise ValueError(f"unknown selective_scan instance {instance!r}; "
+                         f"known: {INSTANCES}")
+    b, t, di = u.shape
+    n = a.shape[1]
     ac = a.contiguous()
     y = torch.empty((b, t, di), dtype=torch.float32, device=u.device)
     state = (torch.empty((b, di, n), dtype=torch.float32, device=u.device)
@@ -196,10 +239,11 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         err = _lib()(u.data_ptr(), dt.data_ptr(), ac.data_ptr(),
                      b_t.data_ptr(), c_t.data_ptr(), y.data_ptr(),
                      None if state is None else state.data_ptr(),
-                     _DTYPES[u.dtype], b, t, di, n, *strides, stream)
-    _build.check(err, "selective_scan")
-    _build.count(selective_scan)
+                     _INSTANCE_IDS[instance], _DTYPES[u.dtype], b, t, di, n,
+                     *strides, stream)
+    _build.check(err, f"selective_scan ({instance})")
     return (y, state) if return_state else y
 
 
 selective_scan.launches = 0
+selective_scan.instances = dict.fromkeys(INSTANCES, 0)

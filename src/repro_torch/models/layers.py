@@ -70,14 +70,18 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``softmax(q k^T / sqrt(D))`` over the visible keys, then ``@ v``;
     logits and softmax in fp32, probabilities back in q's dtype.  q:
     ``[B, T, Hq, D]``; k, v: ``[B, S, Hkv, D]``; visible broadcasts to
-    ``[B, Hq, T, S]``."""
+    ``[B, Hq, T, S]``.  Operands of two dtypes multiply in the promoted
+    one, as JAX's einsums do, so the result takes ``promote(q, v)``."""
     d = q.shape[-1]
     group = q.shape[2] // k.shape[2]
     kr, vr = _gqa_repeat(k, group), _gqa_repeat(v, group)
-    logits = torch.einsum("bthd,bshd->bhts", q, kr) / q.new_tensor(d).sqrt()
+    qk = torch.promote_types(q.dtype, k.dtype)
+    logits = (torch.einsum("bthd,bshd->bhts", q.to(qk), kr.to(qk))
+              / q.new_tensor(d).sqrt())
     logits = logits.float().masked_fill(~visible, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, vr)
+    pv = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs.to(pv), vr.to(pv))
 
 
 def attention_direct(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -96,8 +100,19 @@ def attention_chunked(q, k, v, *, causal: bool):
     backward kernel (its plain version on the CPU).  The reference's XLA
     online-softmax scan (``q_chunk`` / ``kv_chunk`` tiles) is the Pallas
     kernel's twin, and training differentiates it with XLA's autodiff;
-    here the kernels tile themselves."""
-    return flash_attention(q, k, v, causal=causal)
+    here the kernels tile themselves.
+
+    Operands of two dtypes (whisper's bf16 queries against keys and values
+    from fp32 frames) run the kernel instance of the promoted type, and
+    the result comes back in q's dtype, as the reference's ``out.astype(
+    qblk.dtype)``; k and v are never rounded down to q's dtype.  The
+    reference also rounds P to q's dtype before ``P V``; the promoted-type
+    kernel keeps P in fp32, inside the bf16 result's own rounding."""
+    if q.dtype == k.dtype == v.dtype:
+        return flash_attention(q, k, v, causal=causal)
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    return flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                           causal=causal).to(q.dtype)
 
 
 # --------------------------------------------------------------- KV cache --

@@ -20,6 +20,12 @@ decode path and serves through ``Engine._generate_legacy``.
 :func:`loss_fn` trains every attention on the flash kernel and its
 backward (encoder non-causal, decoder causal, cross-attention with the
 frames' length as S), each block rematerialized under ``cfg.remat``.
+
+Mixed dtypes follow JAX's promotion: every product runs in the promoted
+type of its operands (:func:`_mm`), so bf16 weights on fp32 frames encode
+in fp32, and the decoder's cross-attention takes fp32 keys and values
+against bf16 queries (``layers.attention_chunked`` and ``_attend`` give
+the reference's result dtypes).
 """
 from __future__ import annotations
 
@@ -122,6 +128,13 @@ def _ln(x: torch.Tensor, norm, eps: float) -> torch.Tensor:
     return layer_norm(x, norm["scale"], norm["bias"], eps)
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as JAX's ``x @ w``
+    computes it (torch's ``@`` refuses operands of two dtypes)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def _heads(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], cfg.n_heads,
                      cfg.resolved_head_dim)
@@ -134,18 +147,18 @@ def _mha(cfg: ModelConfig, x: torch.Tensor, p, kv: Optional[torch.Tensor] = None
     cross-attention)."""
     b, t, _ = x.shape
     src = x if kv is None else kv
-    q = _heads(cfg, x @ p[f"{prefix}w_q"])
-    k = _heads(cfg, src @ p[f"{prefix}w_k"])
-    v = _heads(cfg, src @ p[f"{prefix}w_v"])
+    q = _heads(cfg, _mm(x, p[f"{prefix}w_q"]))
+    k = _heads(cfg, _mm(src, p[f"{prefix}w_k"]))
+    v = _heads(cfg, _mm(src, p[f"{prefix}w_v"]))
     if direct:
         out = attention_direct(q, k, v, causal=causal)
     else:
         out = attention_chunked(q, k, v, causal=causal)
-    return out.reshape(b, t, -1) @ p[f"{prefix}w_o"]
+    return _mm(out.reshape(b, t, -1), p[f"{prefix}w_o"])
 
 
 def _mlp(x: torch.Tensor, p) -> torch.Tensor:
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    return _mm(F.gelu(_mm(x, p["w1"]), approximate="tanh"), p["w2"])
 
 
 def encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor
@@ -233,9 +246,9 @@ def prefill(cfg: ModelConfig, params: Whisper, tokens: torch.Tensor,
     self_kv = []
     for p in params.dec_layers:
         h = _ln(x, p["norm1"], eps)
-        q, k, v = (_heads(cfg, h @ p[name]) for name in ("w_q", "w_k", "w_v"))
+        q, k, v = (_heads(cfg, _mm(h, p[name])) for name in ("w_q", "w_k", "w_v"))
         attn = attention_chunked(q, k, v, causal=True)
-        x = x + attn.reshape(b, t, -1) @ p["w_o"]
+        x = x + _mm(attn.reshape(b, t, -1), p["w_o"])
         x = x + _mha(cfg, _ln(x, p["norm2"], eps), p, kv=enc, causal=False,
                      prefix="x_")
         x = x + _mlp(_ln(x, p["norm3"], eps), p)
@@ -276,10 +289,10 @@ def decode_step(cfg: ModelConfig, params: Whisper, cache: WhisperCache,
     new_kv = []
     for p, lc in zip(params.dec_layers, cache.self_kv, strict=True):
         h = _ln(x, p["norm1"], eps)
-        q, k_new, v_new = (_heads(cfg, h @ p[name])
+        q, k_new, v_new = (_heads(cfg, _mm(h, p[name]))
                            for name in ("w_q", "w_k", "w_v"))
         attn, nlc = decode_attention(q, lc, k_new, v_new, pos=pos)
-        x = x + attn.reshape(x.shape[0], 1, -1) @ p["w_o"]
+        x = x + _mm(attn.reshape(x.shape[0], 1, -1), p["w_o"])
         new_kv.append(nlc)
         x = x + _mha(cfg, _ln(x, p["norm2"], eps), p, kv=cache.enc_out,
                      causal=False, prefix="x_", direct=True)

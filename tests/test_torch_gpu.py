@@ -32,9 +32,16 @@ Training: the flash backward kernel against its plain version within
 ``flash_attention.grad_agreement``'s limits (fp32: 1e-5 relative Frobenius
 per gradient; bf16: 2^-7, and per element 2^-6 of |ref| plus the row's
 rms plus a tenth of the gradient's rms) at every head dim and dtype, the
-same bits twice, three planted faults rejected; the serve forward writing
-no lse; the recurrence kernels refusing under autograd (ROADMAP queue 1,
-item 15); one reduced fp32 train step on the card against the CPU's."""
+routed instance (``choose_bwd_instance``: ``wgmma`` for aligned bf16 at D
+64 and 128), the ``wgmma`` and ``mma_sync`` instances on the same operands
+(T = 1500, T != S, q_offset), the same bits twice, three planted faults
+rejected; the serve forward writing no lse; the recurrence kernels
+refusing under autograd (ROADMAP queue 1, item 15); one reduced fp32 train
+step on the card against the CPU's.  The selective scan's ``tma`` and
+``simple`` instances on the same operands.
+
+Without the ``gpu`` marker (they run on the CPU; nothing launches): the
+backward's and the scan's choosers on strided CPU views."""
 import dataclasses
 
 import numpy as np
@@ -956,6 +963,37 @@ def test_gpu_selective_scan_equals_plain(cuda, case):
                                                                  want_state)
 
 
+# (B, T, Di, N, dtype): the served shapes cut in Di, a ragged T, Di not a
+# multiple of the tma instance's 32 channels, and N of 8 and 32
+SCAN_INSTANCE_CASES = [
+    (1, 2048, 512, 16, torch.bfloat16),
+    (4, 512, 256, 16, torch.bfloat16),
+    (1, 1000, 256, 16, torch.float32),
+    (2, 130, 72, 8, torch.bfloat16),
+    (1, 70, 40, 32, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_INSTANCE_CASES, ids=str)
+def test_gpu_selective_scan_instances_agree(cuda, case):
+    """Both instances on the same operands, each within ``agreement`` of
+    the plain version on y and the final state; the chooser takes tma."""
+    b, t, di, n, dtype = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * 7 + t + di + n)
+    ops = _scan_operands(g, b, t, di, n, dtype, -4.0, False)
+    from repro_torch.kernels import selective_scan as ss
+
+    assert ss.choose_instance(ops[0], ops[1], ops[3], ops[4]) == "tma"
+    want_y, want_h = selective_scan_plain(*ops, return_state=True)
+    for instance in ss.INSTANCES:
+        y, h = ss._launch(*ops, instance=instance, return_state=True)
+        torch.cuda.synchronize()
+        assert wkv_agreement(y, want_y)["ok"], (instance, wkv_agreement(y, want_y))
+        assert wkv_agreement(h, want_h)["ok"], (instance, wkv_agreement(h, want_h))
+
+
 @pytest.mark.gpu
 def test_gpu_selective_scan_check_rejects_planted_faults(cuda):
     """The kernel passes; a dropped decay (a = 0), or b_t one step late,
@@ -1098,7 +1136,11 @@ def test_gpu_flash_bwd_kernel_equals_plain(cuda, case):
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                  q_offset=q_offset)
     torch.cuda.synchronize()
-    instance = "mma_sync" if q.dtype == torch.bfloat16 else "cuda_core"
+    # the routed instance: wgmma for bf16 at D 64 and 128 (these operands
+    # are fresh, so aligned), mma_sync at D = 32, cuda_core for fp32
+    instance = ("cuda_core" if q.dtype == torch.float32 else
+                "wgmma" if q.shape[-1] in (64, 128) else "mma_sync")
+    assert fa.choose_bwd_instance(q, k, v) == instance
     assert launch_counts()["flash_attention_bwd"] == 1
     assert instance_counts()["flash_attention_bwd"][instance] == 1
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
@@ -1150,10 +1192,52 @@ def test_gpu_flash_bwd_copies_unaligned_operands(cuda):
     q, k, v = big[:, :, :8, 1:], big[:, :, 8:10, 1:], big[:, :, 10:, 1:]
     do = torch.randn((1, 150, 8, 64), generator=g, device=cuda).to(torch.bfloat16)
     o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    assert fa.choose_bwd_instance(q, k, v) == "mma_sync"
     got = fa.flash_attention_bwd(q, k, v, o, do, lse)
-    want = fa.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o, do)),
-                                  lse)
+    # the same instance on contiguous copies (the chooser would take wgmma)
+    want = fa._bwd_launch(*(x.contiguous() for x in (q, k, v, o, do)), lse,
+                          instance="mma_sync", causal=True)
     assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+
+
+# (B, T, S, Hq, Hkv, D, causal, q_offset): whisper's ragged T = 1500 and its
+# cross shape T != S, llama's GQA, D = 128, a negative q_offset whose rows
+# see no key, a positive one, and one q tile
+WGMMA_BWD_CASES = [
+    (1, 1500, 1500, 2, 2, 64, False, 0),
+    (2, 448, 1500, 4, 4, 64, False, 0),
+    (1, 448, 448, 4, 4, 64, True, 0),
+    (1, 512, 512, 16, 4, 64, True, 0),
+    (1, 300, 300, 8, 2, 128, True, 0),
+    (1, 200, 200, 4, 4, 128, False, 0),
+    (1, 256, 256, 4, 2, 64, True, -70),
+    (2, 77, 130, 4, 4, 128, True, 53),
+    (1, 100, 100, 2, 1, 64, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES, ids=str)
+def test_gpu_flash_bwd_wgmma_and_mma_sync_equal_plain(cuda, case):
+    """The wgmma and the mma_sync backward on the same bf16 operands, each
+    within ``grad_agreement`` of the plain version; rows that see no key get
+    zero dq from both."""
+    b, t, s, hq, hkv, d, causal, q_offset = case
+    q, k, v, do = _bwd_operands(cuda, (b, t, s, hq, hkv, d, torch.bfloat16),
+                                sum(case[:6]) + 7)
+    kw = dict(causal=causal, q_offset=q_offset)
+    lse = torch.empty((b, hq, t), device=cuda)
+    o = fa._launch(q, k, v, instance="wgmma", lse=lse, **kw)
+    assert fa.choose_bwd_instance(q, k, v) == "wgmma"
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    for instance in ("wgmma", "mma_sync"):
+        got = fa._bwd_launch(q, k, v, o, do, lse, instance=instance, **kw)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(g).all()) for g in got), instance
+        a = fa.grad_agreement(got, want)
+        assert a["ok"], (instance, a)
+        if q_offset < 0:
+            assert not got[0][:, :-q_offset].any(), instance
 
 
 @pytest.mark.gpu
@@ -1240,3 +1324,57 @@ def test_gpu_train_step_matches_the_cpu(cuda):
     leaves += [(pg["layers"][n], pc["layers"][n]) for n in pc["layers"]]
     for got, want in leaves:
         assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+# ----------------------------------------- the choosers, on the CPU (no card)
+def _views(dtype, b, t, h, d, offset=0, width=None):
+    """A [b, t, h, d] view of a flat CPU tensor starting ``offset`` elements
+    in, with rows ``width`` elements apart (nothing launches)."""
+    width = width or h * d
+    flat = torch.zeros(offset + b * t * width, dtype=dtype)
+    return flat[offset:].view(b, t, width)[..., :h * d].view(b, t, h, d)
+
+
+@pytest.mark.parametrize("d,want", [(32, "mma_sync"), (64, "wgmma"),
+                                    (128, "wgmma")])
+def test_flash_bwd_chooser_routes_by_head_dim(d, want):
+    q = _views(torch.bfloat16, 2, 40, 8, d)
+    k = _views(torch.bfloat16, 2, 40, 2, d)
+    assert fa.choose_bwd_instance(q, k, k) == want
+    # views of one fused projection, as the models hand q, k and v over
+    fused = _views(torch.bfloat16, 1, 40, 12, d)
+    assert fa.choose_bwd_instance(*fused.split([8, 2, 2], dim=2)) == want
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_chooser_takes_mma_sync_for_unaligned_bf16(d):
+    shifted = _views(torch.bfloat16, 1, 40, 4, d, offset=1)   # base off 16 B
+    ok = _views(torch.bfloat16, 1, 40, 4, d)
+    assert fa.choose_bwd_instance(shifted, ok, ok) == "mma_sync"
+    assert fa.choose_bwd_instance(ok, ok, shifted) == "mma_sync"
+    odd = _views(torch.bfloat16, 1, 40, 4, d, width=4 * d + 4)  # row stride
+    assert fa.choose_bwd_instance(ok, odd, ok) == "mma_sync"
+    cut = _views(torch.bfloat16, 1, 40, 4, d + 1)[..., 1:]    # 2-byte offset
+    assert fa.choose_bwd_instance(cut, ok, ok) == "mma_sync"
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bwd_chooser_takes_cuda_cores_for_fp32(d):
+    x = _views(torch.float32, 1, 8, 4, d)
+    assert fa.choose_bwd_instance(x, x, x) == "cuda_core"
+
+
+def test_selective_scan_chooser_routes_by_alignment():
+    from repro_torch.kernels.selective_scan import choose_instance
+
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.zeros((2, 50, 256), dtype=dtype)
+        bc = torch.zeros((2, 50, 32), dtype=dtype)
+        b_t, c_t = bc.chunk(2, dim=-1)           # the model's split of x_bc
+        assert choose_instance(u, u, b_t, c_t) == "tma"
+        off = torch.zeros(2 * 50 * 256 + 1, dtype=dtype)[1:].view(2, 50, 256)
+        assert choose_instance(off, u, b_t, c_t) == "simple"
+        odd = torch.zeros((2, 50, 259), dtype=dtype)[..., :256]  # row stride
+        assert choose_instance(u, odd, b_t, c_t) == "simple"
+        b5 = torch.zeros((2, 50, 21), dtype=dtype)[..., 5:]      # 5-element base
+        assert choose_instance(u, u, b5, c_t) == "simple"
