@@ -184,6 +184,20 @@
    one head) must fail the check; times the kernel, the plain version and
    SDPA's backward (the yardstick, k and v repeated to the q-heads outside
    the timing) beside the bound.
+14b. The recurrent-backward phase: holds ``rwkv6_bwd`` (dr, dk, dv, dw, du
+   and the start state's gradient) and ``selective_scan_bwd`` (du, ddt, da,
+   db, dc, from the forward launch's checkpoints) against
+   ``torch.autograd.grad`` of their plain forwards within their
+   ``grad_agreement`` (the flash backward's limits) at the training
+   microbatches (rwkv6-1.6b ``[2,2048,32,64]`` bf16; jamba ``[1,2048,8192,
+   16]`` bf16 on the model's strided views), fp32 with fast decay and both
+   state gradients, and a ragged T; the same bits twice; the scan's
+   backward also from the ``simple`` instance's checkpoints; three planted
+   faults for WKV-6 (dw's sign flipped on the last tile, du without a head,
+   the reverse sweep a step late) and two for the scan (h_{t-1} from the
+   wrong tile, db without one block's partial) must fail; times each beside
+   its plain version, autograd of the plain forward and the bound, and the
+   scan's checkpointing forward beside the serve forward.
 15. The train phase: llama3.2-1b at full width and depth (bf16 weights from
    ``--seed``, fp32 AdamW, remat per layer) through
    ``launch.train.train_loop`` on one repeated batch of 4 x 2048 tokens for
@@ -197,8 +211,18 @@
    gradients through the kernels against plain attention under autograd
    (``CUT_TOL``); whisper-small at full width, 8 x 448 tokens on 1500
    frames, 3 steps through ``make_train_step`` (72 forward and 36 backward
-   launches a step); and rwkv's and jamba's ``loss_fn`` refusing under
-   autograd on the card (ROADMAP queue 1, item 15).
+   launches a step); rwkv6-1.6b at full width and depth (24 layers, bf16)
+   through ``train_loop`` on one repeated batch of 4 x 2048 tokens in its 2
+   microbatches for 8 steps: 96 ``rwkv6`` and 48 ``rwkv6_bwd`` launches a
+   step and nothing else, the loss falling by ``RWKV_TRAIN_DROP``;
+   jamba-v0.1-52b at its published width cut to its first 2 layers (Mamba +
+   dense MLP, Mamba + MoE; 3.73 B parameters) in its 4 microbatches for 6
+   steps: 16 ``selective_scan`` (the ``tma`` instance, with checkpoints)
+   and 8 ``selective_scan_bwd`` launches a step, the loss falling by
+   ``JAMBA_TRAIN_DROP``; ms per step, tokens/s, peak memory and a profiled
+   step's device busy share for each; and a reduced fp32 step of each
+   family on the card against the CPU's (loss, gnorm and every weight
+   within ``STEP_TOL``).
 16. Prints one ``{"train": ...}`` line, one ``{"jamba": ..., "whisper":
    ...}`` line, one ``{"kernels": [...]}`` line and, last, the ``{"ok":
    true, "device": {...}}`` line.
@@ -511,7 +535,8 @@ def rwkv_phase(torch, np, dev, seed, gen):
                            "polyeval": 0, "flash_attention": 0,
                            "flash_attention_bwd": 0,
                            "rwkv6": cfg.n_layers * len(RWKV_CALLS),
-                           "ring_fold": 0, "selective_scan": 0},
+                           "rwkv6_bwd": 0, "ring_fold": 0,
+                           "selective_scan": 0, "selective_scan_bwd": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain WKV calls on the card")
         print(f"  {what}: weights drawn in {draw_s:.2f} s; generate "
@@ -1933,11 +1958,9 @@ def bwd_faults(q, k, v, o, do, lse, ref, causal, q_offset):
 
 
 def bwd_readings(a):
-    """One line of a ``grad_agreement`` record."""
-    from repro_torch.kernels.flash_attention import GRAD_NAMES
-
-    return "; ".join(f"{n} worst {a[n]['worst']:.3f}, rel. Frobenius "
-                     f"{a[n]['rel_frob']:.2e}" for n in GRAD_NAMES)
+    """One line of a ``grad_agreement`` record (flash, WKV-6 or the scan)."""
+    return "; ".join(f"{n} worst {r['worst']:.3f}, rel. Frobenius "
+                     f"{r['rel_frob']:.2e}" for n, r in a.items() if n != "ok")
 
 
 def flash_bwd_phase(torch, dev, gen):
@@ -2059,6 +2082,305 @@ def flash_bwd_phase(torch, dev, gen):
     return out
 
 
+# the recurrent-backward phase.  WKV-6: (what, B, T, H, dtype, w mean, start
+# and final state gradients, timed): rwkv6-1.6b's training microbatch (4 x
+# 2048 tokens in 2), fp32 with fast decay, a ragged T.  The scan: (what, B,
+# T, dtype, dt mean, final state gradient, timed) at jamba's Di and N, u and
+# b, c as the views the model hands over: jamba's training microbatch (4 x
+# 2048 in 4), fp32, a ragged T over two rows
+RWKV_BWD_CASES = (
+    ("rwkv6-1.6b train microbatch", 2, 2048, 32, "bfloat16", -6.0, False,
+     True),
+    ("fp32, w ~ N(0, 1), state0 and dstate", 2, 2048, 32, "float32", 0.0,
+     True, False),
+    ("ragged T, state0 and dstate", 1, 1000, 32, "bfloat16", -6.0, True,
+     False),
+)
+SCAN_BWD_CASES = (
+    ("jamba train microbatch", 1, 2048, "bfloat16", -4.0, False, True),
+    ("fp32 with dstate", 1, 2048, "float32", -4.0, True, False),
+    ("ragged T, two rows, dt ~ softplus(N(0, 1))", 2, 1000, "bfloat16", 0.0,
+     True, False),
+)
+# the recurrent families' training: rwkv6-1.6b at full width and depth for
+# RWKV_TRAIN_STEPS, jamba-v0.1-52b at full width cut to JAMBA_TRAIN_LAYERS
+# layers for JAMBA_TRAIN_STEPS, each on one repeated TRAIN_BATCH x TRAIN_SEQ
+# batch in its ARCH_TRAIN_OVERRIDES microbatches; the last loss must be below
+# the first by the margin (PERF.md states both before the run)
+RWKV_TRAIN_STEPS, RWKV_TRAIN_DROP = 8, 1.0
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_DROP = 2, 6, 0.5
+# the reduced fp32 recurrent families, card against CPU: every gradient
+# leaf, and one step's loss, gnorm and updated weights, in relative
+# Frobenius norm
+STEP_TOL = 1e-5
+
+
+def wkv_bwd_work(b, t, h, elem_bytes):
+    """(bytes, fp32 flops) of one WKV backward at K = V = 64: r, k, v, w
+    read and dr, dk, dv, dw written once in their dtype, dout read in fp32,
+    u read and du written; 10 K V flops per (b, t, h): S's update and
+    S_{t-1} dout_t, G's update, G_t v_t and k_t G_t."""
+    d, kv = RWKV_HEAD, RWKV_HEAD * RWKV_HEAD
+    nbytes = 8 * b * t * h * d * elem_bytes + 4 * b * t * h * d + 8 * h * d
+    return nbytes, 10 * kv * b * t * h
+
+
+def scan_bwd_work(b, t, di, n, elem_bytes):
+    """(bytes, fp32 operations) of one scan backward: u, dt read and du,
+    ddt written in their dtype, dy and the checkpoints read in fp32, b, c
+    read and db, dc written, a read and da written; about 20 fp32
+    operations per (b, t, d, n) (G's update, the four gradients' terms)."""
+    nbytes = (4 * b * t * di * elem_bytes + 4 * b * t * di
+              + 4 * b * (-(-t // 32)) * di * n + 4 * b * t * n * elem_bytes
+              + 8 * di * n)
+    return nbytes, 20 * b * t * di * n
+
+
+def wkv_grad_ref(torch, ops, s0, dout, ds):
+    """torch.autograd.grad of ``rwkv6_plain`` on the same operands: (dr,
+    dk, dv, dw, du, dstate0 or None)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_plain
+
+    leaves = [x.detach().clone().requires_grad_() for x in ops]
+    if s0 is not None:
+        leaves.append(s0.detach().clone().requires_grad_())
+    out, state = rwkv6_plain(*leaves[:5], state0=leaves[5] if s0 is not None
+                             else None)
+    loss = (out * dout).sum() + (0 if ds is None else (state * ds).sum())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads, strict=True)]
+    return tuple(grads) + ((None,) if s0 is None else ())
+
+
+def scan_grad_ref(torch, ops, dy, ds):
+    """torch.autograd.grad of ``selective_scan_plain`` on the same
+    operands: (du, ddt, da, db, dc)."""
+    from repro_torch.kernels.selective_scan import selective_scan_plain
+
+    leaves = [x.detach().clone().requires_grad_() for x in ops]
+    y, state = selective_scan_plain(*leaves, return_state=True)
+    loss = (y * dy).sum() + (0 if ds is None else (state * ds).sum())
+    return torch.autograd.grad(loss, leaves)
+
+
+def wkv_bwd_faults(ops, dout, got):
+    """Three wrong backwards for ``grad_agreement`` to reject: dw's sign
+    flipped on the last tile, du with head 0 dropped, and the reverse sweep
+    starting one step late (dk, dv and dw of the plain backward with the
+    last step's dout left out)."""
+    from repro_torch.kernels.rwkv6 import BWD_TILE, rwkv6_bwd_plain
+
+    dw = got[3].clone()
+    dw[:, -BWD_TILE:] *= -1
+    yield "dw's sign flipped on the last tile", got[:3] + (dw,) + got[4:]
+    du = got[4].clone()
+    du[0] = 0
+    yield "du with head 0 dropped", got[:4] + (du,) + got[5:]
+    late = dout.clone()
+    late[:, -1] = 0
+    bad = rwkv6_bwd_plain(*ops, late)
+    yield "the reverse sweep one step late", (got[0],) + bad[1:4] + got[4:]
+
+
+def scan_bwd_faults(ops, dy, hck, got):
+    """Two wrong backwards for ``grad_agreement`` to reject: the kernel fed
+    the checkpoints one stretch off (h_{t-1} from the wrong tile), and db
+    without the first block's partial (its 32 channels' share, from the
+    plain backward)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    yield "h_{t-1} read from the wrong tile", ss.selective_scan_bwd(
+        *ops, dy, checkpoints=hck.roll(1, dims=1).contiguous())
+    u, dt, a, b_t, c_t = ops
+    first = ss.selective_scan_bwd_plain(u[..., :32], dt[..., :32], a[:32], b_t,
+                                        c_t, dy[..., :32])
+    db = (got[3].float() - first[3].float()).to(got[3].dtype)
+    yield "db without one block's partial", got[:3] + (db, got[4])
+
+
+def recurrent_bwd_phase(torch, dev, gen, sms):
+    """Hold ``rwkv6_bwd`` and ``selective_scan_bwd`` against
+    ``torch.autograd.grad`` of their plain forwards at the training shapes,
+    with the planted faults; the same bits twice; time each beside its
+    plain version and bound, and the scan's checkpointing forward beside
+    the serve forward.  Returns a record per kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from repro_torch.kernels import rwkv6 as wk
+    from repro_torch.kernels import selective_scan as ss
+
+    t_phase = time.perf_counter()
+    print("recurrent backward kernel checks against torch.autograd.grad of the "
+          "plain forwards (grad_agreement: fp32 1e-5 relative Frobenius per "
+          "gradient, bf16 2^-7; per element 1e-4 / 2^-6 of |ref| + row rms + "
+          "0.1 x the gradient's rms):", flush=True)
+    rec = {}
+    for (what, b, t, h, dt_name, w_mean, states, timed) in RWKV_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        shape = (b, t, h, RWKV_HEAD)
+        r, k, v, w = (torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(4))
+        ops = tuple(x.to(dtype) for x in (r, k, v, w + w_mean)) + (
+            torch.randn((h, RWKV_HEAD), generator=gen, device=dev),)
+        s0, ds = ((torch.randn((b, h, RWKV_HEAD, RWKV_HEAD), generator=gen,
+                               device=dev) for _ in range(2))
+                  if states else (None, None))
+        dout = torch.randn(shape, generator=gen, device=dev)
+        reset_launch_counts()
+        plain0 = wk.rwkv6_bwd_plain.calls
+        got = wk.rwkv6_bwd(*ops, dout, state0=s0, dstate=ds)
+        torch.cuda.synchronize()
+        require(launch_counts()["rwkv6_bwd"] == 1
+                and wk.rwkv6_bwd_plain.calls == plain0,
+                f"rwkv6_bwd {what}: launches {launch_counts()}")
+        want = wkv_grad_ref(torch, ops, s0, dout, ds)
+        require(all(bool(torch.isfinite(x).all()) for x in got if x is not None),
+                f"rwkv6_bwd {what}: a non-finite gradient")
+        agree = wk.grad_agreement(got, want)
+        require(agree["ok"], f"rwkv6_bwd {what}: kernel != autograd of plain "
+                f"({bwd_readings(agree)})")
+        again = wk.rwkv6_bwd(*ops, dout, state0=s0, dstate=ds)
+        require(all(x is None or torch.equal(x, y)
+                    for x, y in zip(got, again, strict=True)),
+                f"rwkv6_bwd {what}: a second launch gave other bits")
+        print(f"  rwkv6_bwd {what} [{b},{t},{h},64] {dt_name}, w ~ N({w_mean:g},"
+              f" 1){', state0 and dstate' if states else ''}: "
+              f"{bwd_readings(agree)}; the same bits twice",
+              flush=True)
+        if timed:
+            for fault, bad in wkv_bwd_faults(ops, dout, got):
+                a = wk.grad_agreement(bad, want)
+                require(not a["ok"], f"rwkv6_bwd: the check accepts a planted "
+                        f"fault ({fault}: {bwd_readings(a)})")
+                print(f"    control, {fault}: rejected (worst rel. Frobenius "
+                      f"{max(a[n]['rel_frob'] for n in wk.GRAD_NAMES if n in a):.3e})",
+                      flush=True)
+            nbytes, flops = wkv_bwd_work(b, t, h, ops[0].element_size())
+            bms, by = bound(nbytes, flops, FP32_OPS_PER_S)
+            rec["rwkv6_bwd"] = r_ = {
+                "shape": f"{dt_name} r, k, v, w [{b},{t},{h},64], fp32 dout",
+                "max_abs_err": max(agree[n]["max_abs_err"] for n in
+                                   wk.GRAD_NAMES if n in agree),
+                "rel_frob": {n: agree[n]["rel_frob"] for n in wk.GRAD_NAMES
+                             if n in agree},
+                "ms": time_ms(torch, lambda: wk.rwkv6_bwd(*ops, dout), 10),
+                "plain_ms": time_ms(torch, lambda: wk.rwkv6_bwd_plain(*ops, dout),
+                                    1),
+                "autograd_plain_ms": time_ms(torch, lambda: wkv_grad_ref(
+                    torch, ops, None, dout, None), 1),
+                "forward_ms": time_ms(torch, lambda: wk.rwkv6(*ops), 10),
+                "bound_ms": bms, "bound_by": by,
+                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            print(f"    kernel {r_['ms']:.4f} ms (the forward at this shape "
+                  f"{r_['forward_ms']:.4f} ms), plain {r_['plain_ms']:.2f} ms, "
+                  f"autograd of the plain forward {r_['autograd_plain_ms']:.2f} "
+                  f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP; "
+                  f"{nbytes / 1e6:.1f} MB take {r_['bytes_ms']:.4f} ms): "
+                  f"{100 * bms / r_['ms']:.1f} % of the bound", flush=True)
+        del ops, s0, ds, dout, got, want, again, r, k, v, w
+        torch.cuda.empty_cache()
+
+    for (what, b, t, dt_name, dt_mean, with_ds, timed) in SCAN_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        xz = torch.randn((b, t, 2 * SCAN_DI), generator=gen, device=dev).to(dtype)
+        bc = torch.randn((b, t, 2 * SCAN_N), generator=gen, device=dev).to(dtype)
+        dtv = F.softplus(torch.randn((b, t, SCAN_DI), generator=gen, device=dev)
+                         + dt_mean).to(dtype)
+        a = -torch.arange(1, SCAN_N + 1, dtype=torch.float32, device=dev).expand(
+            SCAN_DI, SCAN_N) * (1 + 0.1 * torch.rand((SCAN_DI, 1), generator=gen,
+                                                      device=dev))
+        ops = (xz[..., :SCAN_DI], dtv, a.contiguous(), bc[..., :SCAN_N],
+               bc[..., SCAN_N:])
+        dy = torch.randn((b, t, SCAN_DI), generator=gen, device=dev)
+        ds = (torch.randn((b, SCAN_DI, SCAN_N), generator=gen, device=dev)
+              if with_ds else None)
+        reset_launch_counts()
+        plain0 = ss.selective_scan_bwd_plain.calls
+        _, _, hck = ss._forward(*ops, return_state=True, checkpoints=True)
+        got = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
+        torch.cuda.synchronize()
+        require(launch_counts()["selective_scan_bwd"] == 1
+                and instance_counts()["selective_scan"]["tma"] == 1
+                and ss.selective_scan_bwd_plain.calls == plain0,
+                f"selective_scan_bwd {what}: launches {launch_counts()}, "
+                f"instances {instance_counts()['selective_scan']}")
+        want = scan_grad_ref(torch, ops, dy, ds)
+        require(all(bool(torch.isfinite(x).all()) for x in got),
+                f"selective_scan_bwd {what}: a non-finite gradient")
+        agree = ss.grad_agreement(got, want)
+        require(agree["ok"], f"selective_scan_bwd {what}: kernel != autograd of "
+                f"plain ({bwd_readings(agree)})")
+        again = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
+        require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)),
+                f"selective_scan_bwd {what}: a second launch gave other bits")
+        # the simple instance's checkpoints feed the same backward
+        _, _, hck_s = ss._launch(*ops, instance="simple", return_state=True,
+                                 checkpoints=True)
+        agree_s = ss.grad_agreement(ss.selective_scan_bwd(
+            *ops, dy, dstate=ds, checkpoints=hck_s), want)
+        require(agree_s["ok"], f"selective_scan_bwd {what} from the simple "
+                f"instance's checkpoints: {bwd_readings(agree_s)}")
+        print(f"  selective_scan_bwd {what} [{b},{t},{SCAN_DI},{SCAN_N}] "
+              f"{dt_name}{', dstate' if with_ds else ''}: "
+              f"{bwd_readings(agree)}; the same bits twice; "
+              f"from the simple instance's checkpoints within the limits too",
+              flush=True)
+        if timed:
+            for fault, bad in scan_bwd_faults(ops, dy, hck, got):
+                f = ss.grad_agreement(bad, want)
+                require(not f["ok"], f"selective_scan_bwd: the check accepts a "
+                        f"planted fault ({fault}: "
+                        f"{bwd_readings(f)})")
+                print(f"    control, {fault}: rejected (worst rel. Frobenius "
+                      f"{max(f[n]['rel_frob'] for n in ss.GRAD_NAMES):.3e})",
+                      flush=True)
+            nbytes, ops_n = scan_bwd_work(b, t, SCAN_DI, SCAN_N,
+                                          ops[0].element_size())
+            bms, by = bound(nbytes, ops_n, FP32_OPS_PER_S)
+            exps = b * t * SCAN_DI * SCAN_N
+            mufu_ms = exps / (MUFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
+            rec["selective_scan_bwd"] = r_ = {
+                "shape": f"{dt_name} u, dt [{b},{t},{SCAN_DI}] (u a view of "
+                         f"[{b},{t},{2 * SCAN_DI}]), b, c [{b},{t},{SCAN_N}] "
+                         f"(views), fp32 dy and checkpoints",
+                "max_abs_err": max(agree[n]["max_abs_err"]
+                                   for n in ss.GRAD_NAMES),
+                "rel_frob": {n: agree[n]["rel_frob"] for n in ss.GRAD_NAMES},
+                "ms": time_ms(torch, lambda: ss.selective_scan_bwd(
+                    *ops, dy, checkpoints=hck), 10),
+                "plain_ms": time_ms(torch, lambda: ss.selective_scan_bwd_plain(
+                    *ops, dy), 1),
+                "autograd_plain_ms": time_ms(torch, lambda: scan_grad_ref(
+                    torch, ops, dy, None), 1),
+                "forward_ckpt_ms": time_ms(torch, lambda: ss._forward(
+                    *ops, return_state=True, checkpoints=True), 20),
+                "forward_serve_ms": time_ms(torch, lambda: ss.selective_scan(
+                    *ops, return_state=True), 20),
+                "bound_ms": bms, "bound_by": by, "mufu_ms": mufu_ms,
+                "fp32_ops_ms": ops_n / FP32_OPS_PER_S * 1e3}
+            print(f"    kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.2f} ms, "
+                  f"autograd of the plain forward {r_['autograd_plain_ms']:.2f} "
+                  f"ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; "
+                  f"{ops_n / 1e9:.2f} G fp32 operations take "
+                  f"{r_['fp32_ops_ms']:.4f} ms): {100 * bms / r_['ms']:.1f} % "
+                  f"of the bound; one exponential an element takes "
+                  f"{mufu_ms:.4f} ms on the special-function units; the "
+                  f"forward [tma] with checkpoints {r_['forward_ckpt_ms']:.4f} "
+                  f"ms, without (serve) {r_['forward_serve_ms']:.4f} ms",
+                  flush=True)
+        del ops, xz, bc, dtv, a, dy, ds, hck, got, want, again, hck_s
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"recurrent backward phase: {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 class RepeatedBatch:
     """One batch of a :class:`~repro_torch.data.pipeline.SyntheticTokens`
     stream, repeated at every step (a loss that must fall)."""
@@ -2073,13 +2395,15 @@ class RepeatedBatch:
 def train_phase(torch, np, dev, seed):
     """Train llama3.2-1b at full width and depth on a repeated batch; an
     exact-step resume at a two-layer cut; the fp32 two-layer cut against
-    plain attention under autograd; whisper-small at full width; the
-    refusals.  Returns the records of the report."""
+    plain attention under autograd; whisper-small at full width;
+    rwkv6-1.6b at full width and depth and jamba at full width cut to 2
+    layers, each with its reduced fp32 step against the CPU's.  Returns the
+    records of the report."""
     import dataclasses
     import shutil
 
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import (
         instance_counts,
@@ -2089,7 +2413,6 @@ def train_phase(torch, np, dev, seed):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.train import train_loop
     from repro_torch.models import jamba as jb
-    from repro_torch.models import rwkv as rw
     from repro_torch.models import transformer as tr
     from repro_torch.models import whisper as wh
     from repro_torch.train.step import (
@@ -2322,26 +2645,185 @@ def train_phase(torch, np, dev, seed):
     del wparams, wstate, batch
     torch.cuda.empty_cache()
 
-    # ---- the refusals: rwkv's WKV and jamba's scan have no backward kernel
-    for arch, model in (("rwkv6-1.6b", rw), ("jamba-v0.1-52b", jb)):
-        rcfg = reduced(get_config(arch))
-        rp = model.init_params(rcfg, seed, device=dev).requires_grad_(True)
-        tok = torch.zeros((1, 32), dtype=torch.long, device=dev)
-        try:
-            model.loss_fn(rcfg, rp, tok, tok)
-        except NotImplementedError as e:
-            require("item 15" in str(e), f"{arch}: refusal without its item: {e}")
-            print(f"  {arch} loss_fn under grad on the card refuses: {e}",
-                  flush=True)
-        else:
-            raise SmokeFailure(f"{arch}: loss_fn under grad ran on the card")
-        with torch.no_grad():
-            model.loss_fn(rcfg, rp, tok, tok)   # without autograd it runs
-        del rp
+    # ---- the recurrent families: rwkv6-1.6b, and jamba cut in depth
+    out_rec = {}
+    rcfg = get_config("rwkv6-1.6b")
+    require((rcfg.family, rcfg.n_layers, rcfg.d_model, rcfg.d_ff, rcfg.vocab,
+             rcfg.dtype, rcfg.remat) == ("ssm", RWKV_LAYERS,
+                                         RWKV_HEADS * RWKV_HEAD, 7168, 65536,
+                                         "bfloat16", True),
+            f"rwkv6-1.6b config changed: {rcfg}")
+    out_rec["rwkv6-1.6b"] = train_recurrent(
+        torch, np, dev, seed, rcfg, RWKV_TRAIN_STEPS, RWKV_TRAIN_DROP,
+        {"rwkv6": 2 * rcfg.n_layers, "rwkv6_bwd": rcfg.n_layers}, "wkv")
+    full = get_config("jamba-v0.1-52b")
+    jcfg = dataclasses.replace(full, n_layers=JAMBA_TRAIN_LAYERS)
+    require(not any(jb.is_attn_layer(jcfg, l) for l in range(jcfg.n_layers))
+            and [jb.is_moe_layer(jcfg, l) for l in range(jcfg.n_layers)]
+            == [False, True] and jcfg.remat,
+            f"jamba's first {JAMBA_TRAIN_LAYERS} layers: want Mamba + dense MLP, "
+            f"Mamba + MoE")
+    out_rec["jamba-v0.1-52b"] = train_recurrent(
+        torch, np, dev, seed, jcfg, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_DROP,
+        {"selective_scan": 2 * jcfg.n_layers,
+         "selective_scan_bwd": jcfg.n_layers}, "scan")
+    for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+        out_rec[arch]["fp32_cut"] = recurrent_fp32_step(torch, np, dev, arch)
     out = {"llama": llama, "resume": resume, "cut": cut_rec, "whisper": whisper,
-           "phase_s": time.perf_counter() - t_phase}
+           "recurrent": out_rec, "phase_s": time.perf_counter() - t_phase}
     print(f"train phase: {out['phase_s']:.1f} s", flush=True)
     return out
+
+
+def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel):
+    """Train ``cfg`` at full width on one repeated TRAIN_BATCH x TRAIN_SEQ
+    batch for ``steps`` steps through ``launch.train.train_loop``, in its
+    ``ARCH_TRAIN_OVERRIDES`` microbatches: launches exactly ``per_mb`` a
+    microbatch of every step (nothing else, no plain version), a finite and
+    falling loss (by ``drop``); one more step under the profiler.  Returns
+    the record of the report."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import rwkv6 as wk
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import ARCH_TRAIN_OVERRIDES, make_train_step
+
+    mb = ARCH_TRAIN_OVERRIDES[cfg.name].microbatches
+    tc = dataclasses.replace(ARCH_TRAIN_OVERRIDES[cfg.name], peak_lr=3e-4,
+                             warmup=0, stable=10_000, decay=1_000, seq_chunk=512)
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed)
+    print(f"train: {cfg.name} at its published width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, remat "
+          f"per layer); AdamW in fp32 ({tc}); one batch of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens from seed {seed} in {mb} microbatches, repeated "
+          f"for {steps} steps", flush=True)
+    plains = (wk.rwkv6_plain, wk.rwkv6_bwd_plain, ss.selective_scan_plain,
+              ss.selective_scan_bwd_plain)
+    plain0 = [f.calls for f in plains]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    reset_launch_counts()
+    params, opt_state, losses = train_loop(
+        cfg, tc, steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        ckpt_dir=None, log_every=1, seed=seed, device=dev,
+        data=RepeatedBatch(tokens), history=history)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    want = {k: v * mb * steps for k, v in per_mb.items()}
+    require({k: counts[k] for k in want} == want
+            and sum(counts.values()) == sum(want.values()),
+            f"{cfg.name} train: launch counts {counts}, want {want} (a "
+            f"microbatch: {per_mb}, the forward twice under remat)")
+    require([f.calls for f in plains] == plain0,
+            f"{cfg.name} train: a plain recurrence ran on the card")
+    require(all(np.isfinite([h["loss"], h["gnorm"]]).all() for h in history),
+            f"{cfg.name} train: a non-finite loss or gradient norm")
+    fell = losses[0] - losses[-1]
+    require(fell >= drop, f"{cfg.name} train: the loss fell by {fell:.3f}, less "
+            f"than {drop} ({losses})")
+    steady = [h["s"] for h in history[1:]]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    for h in history:
+        print(f"  step {h['step']}: loss {h['loss']:.4f}, lr {h['lr']:.2e}, "
+              f"gnorm {h['gnorm']:.4f}, {1e3 * h['s']:.1f} ms", flush=True)
+    print(f"  {n_params / 1e9:.3f} B parameters; {step_ms:.1f} ms per step over "
+          f"steps 1..{steps - 1} ({tok_s:.0f} tokens/s; step 0 "
+          f"{1e3 * history[0]['s']:.1f} ms); peak memory {peak / 2**30:.2f} GiB; "
+          f"the loss fell by {fell:.3f} (the check: at least {drop}); per step "
+          + ", ".join(f"{v * mb} {k}" for k, v in per_mb.items())
+          + " launches, nothing else, no plain recurrence", flush=True)
+    step_fn = make_train_step(cfg, tc)
+    batch = tokens.batch(0, device=dev)
+    device_share(torch, f"{cfg.name} train step [{TRAIN_BATCH},{TRAIN_SEQ}]",
+                 lambda: step_fn(params, opt_state, batch), kernel, top=12)
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
+            "losses": losses, "n_params": n_params, "launches": counts,
+            "microbatches": mb}
+
+
+def recurrent_fp32_step(torch, np, dev, arch):
+    """The reduced ``arch`` in fp32 (remat on) on the card through the
+    recurrence kernels against the CPU: every gradient of ``loss_fn`` per
+    weight, and one train step (2 microbatches): loss, gnorm and the
+    updated weights, all within ``STEP_TOL`` in relative Frobenius norm.
+    The updated weights are held as one vector: Adam's first step moves an
+    element by ``lr g / (|g| + eps)``, which the last bits of a gradient
+    near 0 decide, and on jamba's zero-initialised ``conv_b`` the CPU's own
+    fp32 step lies farther than 1e-5 from an fp64 step, so no weight of
+    that kind can be held alone at 1e-5.  Returns the worst relative
+    differences."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.train.step import (
+        TrainConfig,
+        make_optimizer,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                              remat=True)
+    model = get_model(cfg)
+    tc = TrainConfig(warmup=0, seq_chunk=64, microbatches=2)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 256)))
+             for k in ("tokens", "targets")}
+    runs = {}
+    for where in ("cpu", dev):
+        params = model.init_params(cfg, 0, device="cpu").to(where)
+        params.requires_grad_(True)
+        on = {k: v.to(where) for k, v in batch.items()}
+        named = dict(params.named_parameters())
+        loss = model.loss_fn(cfg, params, on["tokens"], on["targets"],
+                             seq_chunk=tc.seq_chunk)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
+        grads = {n: (torch.zeros_like(w) if g is None else g).detach().cpu()
+                 for (n, w), g in zip(named.items(), grads, strict=True)}
+        opt_state = make_optimizer(tc).init(params)
+        reset_launch_counts()
+        params, _, m = make_train_step(cfg, tc)(params, opt_state, on)
+        runs[str(where)] = ({k: float(v) for k, v in m.items()}, grads,
+                            torch.cat([p.detach().cpu().reshape(-1)
+                                       for p in params.parameters()]),
+                            launch_counts())
+    (mc, gc, wc, _), (mg, gg, wg, counts) = runs["cpu"], runs[str(dev)]
+    fwd, bwd = (("rwkv6", "rwkv6_bwd") if cfg.family == "ssm"
+                else ("selective_scan", "selective_scan_bwd"))
+    require(counts[bwd] > 0 and counts[fwd] == 2 * counts[bwd],
+            f"{arch} fp32 step: launches {counts}")
+    rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "gnorm")}
+    errs = {n: float((gg[n] - w).norm() / w.norm().clamp_min(1e-30))
+            for n, w in gc.items()}
+    worst = max(errs, key=errs.get)
+    wrel = float((wg - wc).norm() / wc.norm())
+    require(max(rel.values()) <= STEP_TOL and errs[worst] <= STEP_TOL
+            and wrel <= STEP_TOL,
+            f"{arch} fp32 step: loss/gnorm {rel}, gradient {worst} off by "
+            f"{errs[worst]:.3e}, weights by {wrel:.3e} (limit {STEP_TOL})")
+    print(f"  {arch} reduced fp32 ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"[4,256]), card against CPU: worst gradient {worst} at "
+          f"{errs[worst]:.2e} relative Frobenius; one step in 2 microbatches: "
+          f"loss {mg['loss']:.6f} / {mc['loss']:.6f} (relative "
+          f"{rel['loss']:.2e}), gnorm relative {rel['gnorm']:.2e}, the updated "
+          f"weights {wrel:.2e} (limit {STEP_TOL} each); {counts[fwd]} {fwd} and "
+          f"{counts[bwd]} {bwd} launches in the step", flush=True)
+    return {"loss_rel": rel["loss"], "gnorm_rel": rel["gnorm"],
+            "worst_grad": worst, "worst_grad_rel_frob": errs[worst],
+            "weights_rel_frob": wrel}
 
 
 def planted_faults(q, k, v, ref, *, causal, q_offset):
@@ -2530,8 +3012,8 @@ def serve_phase(torch, np, dev, seed, hold_flash):
                            "polyeval": 0,
                            "flash_attention": cfg.n_layers * prefills,
                            "flash_attention_bwd": 0,
-                           "rwkv6": 0, "ring_fold": 0,
-                           "selective_scan": 0},
+                           "rwkv6": 0, "rwkv6_bwd": 0, "ring_fold": 0,
+                           "selective_scan": 0, "selective_scan_bwd": 0},
                 f"{what}: launch counts {counts}")
         require(plain == 0, f"{what}: {plain} plain attention calls on the card")
         require(fa_mod.flash_attention.lse_launches == 0,
@@ -3048,7 +3530,8 @@ def main(argv=None):
         require(counts == {"modmatmul_batched": MAIN_BLOCKS, "modmatmul": 0,
                            "polyeval": 4 * MAIN_BLOCKS, "flash_attention": 0,
                            "flash_attention_bwd": 0, "rwkv6": 0,
-                           "ring_fold": 0, "selective_scan": 0},
+                           "rwkv6_bwd": 0, "ring_fold": 0,
+                           "selective_scan": 0, "selective_scan_bwd": 0},
                 f"{what}: launch counts {counts}")
         inst = instance_counts()["modmatmul_batched"]
         require(inst == {"tensor_core": MAIN_BLOCKS, "skinny": 0,
@@ -3173,7 +3656,8 @@ def main(argv=None):
     require(tags_counts == {"modmatmul_batched": 0, "modmatmul": 1,
                             "polyeval": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "rwkv6": 0,
-                            "ring_fold": 0, "selective_scan": 0},
+                            "rwkv6_bwd": 0, "ring_fold": 0,
+                            "selective_scan": 0, "selective_scan_bwd": 0},
             f"tags stage launch counts {tags_counts}")
     require(instance_counts()["modmatmul"] == {"tensor_core": 0, "skinny": 1,
                                                "cuda_core": 0},
@@ -3233,6 +3717,7 @@ def main(argv=None):
 
     # ----------- training: the flash backward kernel, then the train phase
     bwd_rec = flash_bwd_phase(torch, dev, gen)
+    rbwd_rec = recurrent_bwd_phase(torch, dev, gen, sms)
     train_rec = train_phase(torch, np, dev, args.seed)
 
     # ------------------------------------------------------------ report
@@ -3447,12 +3932,40 @@ def main(argv=None):
             "shape", "instance", "ms", "mma_sync_ms", "plain_ms", "bound_ms",
             "library_ms", "max_abs_err")}
             for what, r in bwd_rec.items() if what != BWD_CASES[0][0]}})
+    rtrain = train_rec["recurrent"]
+    for name, fwd, arch, rows in (
+            ("rwkv6_bwd", "rwkv6", "rwkv6-1.6b",
+             "src/repro/kernels/ref.py:58 (the XLA autodiff of rwkv6_chunked, "
+             "or of rwkv6_scan_with_state, ref.py:34, through which the "
+             "reference trains; no Pallas kernel has a backward)"),
+            ("selective_scan_bwd", "selective_scan", "jamba-v0.1-52b",
+             "src/repro/models/ssm.py:59 (the XLA autodiff of "
+             "_selective_scan_chunked, plain JAX)")):
+        r = rbwd_rec[name]
+        t_rec = rtrain[arch]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": rows, "launches": t_rec["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": r["shape"], "rel_frob": r["rel_frob"],
+            "autograd_plain_ms": r["autograd_plain_ms"],
+            "path": f"{arch} training ({t_rec['microbatches']} microbatches a "
+                    f"step, {len(t_rec['losses'])} steps; forward launches "
+                    f"{t_rec['launches'][fwd]})"})
+        kernels[-1].update({k: r[k] for k in ("forward_ms", "forward_ckpt_ms",
+                                               "forward_serve_ms", "mufu_ms")
+                            if k in r})
     llama_train = train_rec["llama"]
     print(json.dumps({"train": {
         "llama3.2-1b": {k: llama_train[k] for k in (
             "step_ms", "tokens_per_s", "peak_gib", "losses", "n_params")},
         "resume": train_rec["resume"], "fp32_cut": train_rec["cut"],
         "whisper-small": train_rec["whisper"],
+        **{arch: {k: v for k, v in r.items() if k != "launches"}
+           for arch, r in rtrain.items()},
         "phase_s": train_rec["phase_s"]}}))
     print(json.dumps({"jamba": {k: jamba_rec[k] for k in (
         "times", "peak_gib", "n_params", "phase_s")}, "whisper": {

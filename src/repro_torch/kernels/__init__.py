@@ -8,11 +8,13 @@
   prefill, and training's forward) and its backward
   (``flash_attention_bwd``: dq, dk and dv, training's backward);
 * :mod:`.rwkv6` — the RWKV-6 WKV recurrence with its final state (the
-  rwkv family's prefill);
+  rwkv family's prefill, and training's forward) and its backward
+  (``rwkv6_bwd``: dr, dk, dv, dw, du and the start state's gradient);
 * :mod:`.ring_fold` — ``(acc + chunk) mod p``, one hop of the sharded
   runner's int32 ring reduce-scatter (a port-only kernel);
 * :mod:`.selective_scan` — Mamba's selective scan with its final state
-  (the hybrid family's prefill; a port-only kernel);
+  (the hybrid family's prefill, and training's forward; a port-only
+  kernel) and its backward (``selective_scan_bwd``: du, ddt, da, db, dc);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
   binding, at first use.
 
@@ -21,7 +23,8 @@ wrappers' launch counters, so a run can show which kernels it went through;
 :func:`instance_counts` splits them by the instance each wrapper's chooser
 picked (``modmatmul*``: ``tensor_core``, ``skinny`` or ``cuda_core``;
 ``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``;
-``flash_attention_bwd``: ``mma_sync`` or ``cuda_core``).  The counters
+``flash_attention_bwd``: ``wgmma``, ``mma_sync`` or ``cuda_core``;
+``selective_scan``: ``tma`` or ``simple``).  The counters
 also zero ``flash_attention.lse_launches``, the forward launches that
 wrote the log-sum-exp for a backward (0 on the serve path).
 """
@@ -43,8 +46,10 @@ WRAPPERS = {
     "flash_attention": _flash_attention.flash_attention,
     "flash_attention_bwd": _flash_attention.flash_attention_bwd,
     "rwkv6": _rwkv6.rwkv6,
+    "rwkv6_bwd": _rwkv6.rwkv6_bwd,
     "ring_fold": _ring_fold.ring_fold,
     "selective_scan": _selective_scan.selective_scan,
+    "selective_scan_bwd": _selective_scan.selective_scan_bwd,
 }
 
 

@@ -31,8 +31,8 @@ from .barrett import barrett_params
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("modmatmul", "modmatmul_tc", "modmatmul_skinny", "polyeval",
-           "flash_attention", "flash_attention_bwd", "rwkv6", "ring_fold",
-           "selective_scan")
+           "flash_attention", "flash_attention_bwd", "rwkv6", "rwkv6_bwd",
+           "ring_fold", "selective_scan", "selective_scan_bwd")
 HEADERS = ("field.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

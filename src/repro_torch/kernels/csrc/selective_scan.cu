@@ -14,7 +14,11 @@
 // Contract: u, dt [B, T, Di] and b, c [B, T, N], all fp32 or all bf16, read
 // through the (batch, time) strides they come with and unit stride along the
 // last dim; a [Di, N] fp32 contiguous.  Writes y [B, T, Di] fp32 contiguous
-// and, when hT is not null, the final state hT [B, Di, N] fp32 contiguous.
+// and, when hT is not null, the final state hT [B, Di, N] fp32 contiguous;
+// when hck is not null (training: selective_scan_bwd.cu reads them), h at
+// the start of every CK = 32 steps, hck [B, ceil(T / 32), Di, N] fp32
+// contiguous (checkpoint i is h_{32 i - 1}, zero for i = 0).  The serve
+// path passes null and writes nothing more.
 // N is 8, 16 or 32.  Every operand is cast to fp32 before it is multiplied,
 // as ssm.py:85-89 does.
 //
@@ -54,11 +58,11 @@
 //     shared memory (two, alternating), which leaves as one TMA store a
 //     tile: per-step 4-byte stores from the lanes took a quarter of the
 //     kernel's time (measured on the H100).
-//     The state item 15's reverse scan needs: this layout can write h at
-//     every tile boundary, [B, ceil(T / 64), Di, N] fp32, each thread's 4
-//     states as one 16-byte store, from which the backward re-runs a tile
-//     forward before scanning it in reverse; this change does not write
-//     them yet.
+//     The checkpoints for the backward: at every CK = 32 steps (twice a
+//     tile, before the group that starts there) each thread stores its 4
+//     states as one 16-byte store; the backward re-runs 32 steps forward
+//     from one before scanning them in reverse.  A template flag: the
+//     serve path's instance carries no trace of them.
 //   * simple (any strides): one thread per (b, d, n), the N states of a
 //     channel on N neighbouring lanes; a block of 256 threads holds 256 / N
 //     channels of one batch row and walks T in tiles of 64 steps staged in
@@ -79,6 +83,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int TS = 64;             // steps per tile
+constexpr int CK = 32;             // steps between the backward's checkpoints
 
 struct Strides {
   long long b, t;                  // elements between batch rows, steps
@@ -91,13 +96,13 @@ namespace simple {
 
 constexpr int THREADS = 256;
 
-template <typename T, int N>
+template <typename T, int N, bool CKPT>
 __global__ void __launch_bounds__(THREADS)
     scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ bt,
                 const T* __restrict__ ct, float* __restrict__ y,
-                float* __restrict__ hT, int Tn, int Di, Strides us, Strides ds,
-                Strides bs, Strides cs) {
+                float* __restrict__ hT, float* __restrict__ hck, int Tn, int Di,
+                Strides us, Strides ds, Strides bs, Strides cs) {
   constexpr int C = THREADS / N;   // channels per block
   __shared__ float su[TS][C];
   __shared__ float sdt[TS][C];
@@ -149,6 +154,8 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
     for (int s = 0; s < steps; ++s) {
+      if (CKPT && live && (t0 + s) % CK == 0)
+        hck[((b * ((Tn + CK - 1) / CK) + (t0 + s) / CK) * Di + d) * N + n] = h;
       const float dtv = sdt[s][ch];
       const float decay = expf(dtv * an);
       h = fmaf(decay, h, (dtv * su[s][ch]) * sb[s][n]);
@@ -171,16 +178,18 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int N>
 int launch(const void* u, const void* dt, const void* a, const void* bt,
-           const void* ct, void* y, void* hT, int B, int Tn, int Di,
+           const void* ct, void* y, void* hT, void* hck, int B, int Tn, int Di,
            const Strides& us, const Strides& ds, const Strides& bs,
            const Strides& cs, cudaStream_t st) {
   constexpr int C = THREADS / N;
   const dim3 grid((Di + C - 1) / C, B);
-  scan_kernel<T, N><<<grid, THREADS, 0, st>>>(
+  auto kernel = hck != nullptr ? scan_kernel<T, N, true> : scan_kernel<T, N, false>;
+  kernel<<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt),
       static_cast<const float*>(a), static_cast<const T*>(bt),
       static_cast<const T*>(ct), static_cast<float*>(y),
-      static_cast<float*>(hT), Tn, Di, us, ds, bs, cs);
+      static_cast<float*>(hT), static_cast<float*>(hck), Tn, Di, us, ds, bs,
+      cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -219,7 +228,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <typename T, int N>
+template <typename T, int N, bool CKPT>
 __global__ void __launch_bounds__(Threads<N>::value)
     ring_scan_kernel(const __grid_constant__ CUtensorMap umap,
                      const __grid_constant__ CUtensorMap dmap,
@@ -227,7 +236,7 @@ __global__ void __launch_bounds__(Threads<N>::value)
                      const __grid_constant__ CUtensorMap cmap,
                      const __grid_constant__ CUtensorMap ymap,
                      const float* __restrict__ a, float* __restrict__ hT,
-                     int Tn, int Di) {
+                     float* __restrict__ hck, int Tn, int Di) {
   using St = Stage<T, N>;
   constexpr int L = N / SPT;
   constexpr int THREADS = Threads<N>::value;
@@ -302,6 +311,14 @@ __global__ void __launch_bounds__(Threads<N>::value)
     // the store drops its y.
     const int steps = min(TS, Tn - i * TS);
     for (int r0 = 0; r0 < steps; r0 += U) {
+      if (CKPT && live && r0 % CK == 0) {
+        float* hrow = hck + ((static_cast<long long>(b) * ((Tn + CK - 1) / CK) +
+                              (i * TS + r0) / CK) * Di + d) * N + n0;
+#pragma unroll
+        for (int j = 0; j < SPT; j += 4)
+          *reinterpret_cast<float4*>(hrow + j) =
+              make_float4(h[j], h[j + 1], h[j + 2], h[j + 3]);
+      }
       float dtv[U], dtu[U], bv[U][SPT], cv[U][SPT];
 #pragma unroll
       for (int k = 0; k < U; ++k) {
@@ -372,7 +389,7 @@ bool operand_map(CUtensorMap* map, const void* base, int B, int Tn, int W,
 
 template <typename T, int N>
 int launch(const void* u, const void* dt, const void* a, const void* bt,
-           const void* ct, void* y, void* hT, int B, int Tn, int Di,
+           const void* ct, void* y, void* hT, void* hck, int B, int Tn, int Di,
            const Strides& us, const Strides& ds, const Strides& bs,
            const Strides& cs, cudaStream_t st) {
   using S = Stage<T, N>;
@@ -384,14 +401,18 @@ int launch(const void* u, const void* dt, const void* a, const void* bt,
       !operand_map<T>(&cm, ct, B, Tn, N, cs, N) ||
       !operand_map<float>(&ym, y, B, Tn, Di, ys, CH))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = ring_scan_kernel<T, N>;
+  // the checkpoints are a template flag: the serve path's instance has no
+  // trace of them (as a run-time test in the step loop it cost the serve
+  // forward several percent on an H100)
+  auto kernel = hck != nullptr ? ring_scan_kernel<T, N, true>
+                               : ring_scan_kernel<T, N, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(S::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Di + CH - 1) / CH, B);
   kernel<<<grid, Threads<N>::value, S::SMEM, st>>>(
       um, dm, bm, cm, ym, static_cast<const float*>(a),
-      static_cast<float*>(hT), Tn, Di);
+      static_cast<float*>(hT), static_cast<float*>(hck), Tn, Di);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,31 +421,32 @@ int launch(const void* u, const void* dt, const void* a, const void* bt,
 // instance 0: simple; 1: the TMA ring
 template <typename T, int N>
 int launch(int instance, const void* u, const void* dt, const void* a,
-           const void* bt, const void* ct, void* y, void* hT, int B, int Tn,
-           int Di, const Strides& us, const Strides& ds, const Strides& bs,
-           const Strides& cs, cudaStream_t st) {
+           const void* bt, const void* ct, void* y, void* hT, void* hck, int B,
+           int Tn, int Di, const Strides& us, const Strides& ds,
+           const Strides& bs, const Strides& cs, cudaStream_t st) {
   if (instance == 1)
-    return ring::launch<T, N>(u, dt, a, bt, ct, y, hT, B, Tn, Di, us, ds, bs,
-                              cs, st);
-  return simple::launch<T, N>(u, dt, a, bt, ct, y, hT, B, Tn, Di, us, ds, bs,
-                              cs, st);
+    return ring::launch<T, N>(u, dt, a, bt, ct, y, hT, hck, B, Tn, Di, us, ds,
+                              bs, cs, st);
+  return simple::launch<T, N>(u, dt, a, bt, ct, y, hT, hck, B, Tn, Di, us, ds,
+                              bs, cs, st);
 }
 
 template <typename T>
 int launch_n(int instance, const void* u, const void* dt, const void* a,
-             const void* bt, const void* ct, void* y, void* hT, int B, int Tn,
-             int Di, int N, const Strides& us, const Strides& ds,
-             const Strides& bs, const Strides& cs, cudaStream_t st) {
+             const void* bt, const void* ct, void* y, void* hT, void* hck,
+             int B, int Tn, int Di, int N, const Strides& us,
+             const Strides& ds, const Strides& bs, const Strides& cs,
+             cudaStream_t st) {
   switch (N) {
     case 8:
-      return launch<T, 8>(instance, u, dt, a, bt, ct, y, hT, B, Tn, Di, us, ds,
-                          bs, cs, st);
+      return launch<T, 8>(instance, u, dt, a, bt, ct, y, hT, hck, B, Tn, Di,
+                          us, ds, bs, cs, st);
     case 16:
-      return launch<T, 16>(instance, u, dt, a, bt, ct, y, hT, B, Tn, Di, us,
-                           ds, bs, cs, st);
+      return launch<T, 16>(instance, u, dt, a, bt, ct, y, hT, hck, B, Tn, Di,
+                           us, ds, bs, cs, st);
     case 32:
-      return launch<T, 32>(instance, u, dt, a, bt, ct, y, hT, B, Tn, Di, us,
-                           ds, bs, cs, st);
+      return launch<T, 32>(instance, u, dt, a, bt, ct, y, hT, hck, B, Tn, Di,
+                           us, ds, bs, cs, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -433,15 +455,17 @@ int launch_n(int instance, const void* u, const void* dt, const void* a,
 }  // namespace
 
 // instance: 0 simple, 1 the TMA ring (every operand's base 16-byte aligned,
-// its strides multiples of 16 bytes); dtype: 0 fp32, 1 bf16.  Returns
+// its strides multiples of 16 bytes); dtype: 0 fp32, 1 bf16.  hT and hck
+// may be null.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
 // unknown instance or dtype, an N without an instance (8, 16, 32), or
 // operands a tensor map refuses.
 extern "C" int selective_scan_launch(
     const void* u, const void* dt, const void* a, const void* bt,
-    const void* ct, void* y, void* hT, int instance, int dtype, int B, int Tn,
-    int Di, int N, long long usb, long long ust, long long dsb, long long dst,
-    long long bsb, long long bst, long long csb, long long cst, void* stream) {
+    const void* ct, void* y, void* hT, void* hck, int instance, int dtype,
+    int B, int Tn, int Di, int N, long long usb, long long ust, long long dsb,
+    long long dst, long long bsb, long long bst, long long csb, long long cst,
+    void* stream) {
   if (B == 0 || Di == 0) return 0;
   if ((instance != 0 && instance != 1) || (dtype != 0 && dtype != 1) ||
       B > 65535 || Tn < 0 || Di < 0)
@@ -449,8 +473,8 @@ extern "C" int selective_scan_launch(
   const Strides us{usb, ust}, ds{dsb, dst}, bs{bsb, bst}, cs{csb, cst};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_n<float>(instance, u, dt, a, bt, ct, y, hT, B, Tn, Di, N, us,
-                           ds, bs, cs, st);
-  return launch_n<bf16>(instance, u, dt, a, bt, ct, y, hT, B, Tn, Di, N, us, ds,
-                        bs, cs, st);
+    return launch_n<float>(instance, u, dt, a, bt, ct, y, hT, hck, B, Tn, Di, N,
+                           us, ds, bs, cs, st);
+  return launch_n<bf16>(instance, u, dt, a, bt, ct, y, hT, hck, B, Tn, Di, N,
+                        us, ds, bs, cs, st);
 }

@@ -116,14 +116,15 @@ def agreement(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "rel_frob": rel_frob, "ok": worst <= 1.0 and rel_frob <= frob_tol}
 
 
-def grad_agreement(got, ref) -> dict:
+def grad_agreement(got, ref, *, names=GRAD_NAMES) -> dict:
     """How far the backward's ``got = (dq, dk, dv)`` lies from ``ref``, the
     plain version's on the same operands: per gradient ``max_abs_err``,
     ``worst`` (the largest element error over its limit), ``rel_frob`` and
     ``ok`` (within the limits above for ref's dtype), and ``ok`` over all
-    three."""
+    of them.  ``names`` names the gradients (the recurrence kernels' own
+    backwards are held to the same limits)."""
     out = {}
-    for name, g, r in zip(GRAD_NAMES, got, ref, strict=True):
+    for name, g, r in zip(names, got, ref, strict=True):
         gf, rf = g.float(), r.float()
         err = (gf - rf).abs()
         if not err.numel():
@@ -146,7 +147,7 @@ def grad_agreement(got, ref) -> dict:
         out[name] = {"max_abs_err": float(err.max()), "worst": worst,
                      "rel_frob": rel_frob,
                      "ok": worst <= 1.0 and rel_frob <= frob_tol}
-    out["ok"] = all(out[name]["ok"] for name in GRAD_NAMES)
+    out["ok"] = all(out[name]["ok"] for name in names)
     return out
 
 

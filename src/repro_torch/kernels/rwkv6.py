@@ -33,10 +33,19 @@ The wrapper checks its operands, allocates the outputs with
 (:func:`rwkv6_plain`, which counts its calls in ``rwkv6_plain.calls``); a
 CUDA tensor launches the kernel or raises.
 
-The kernel has no backward yet: on a CUDA tensor under autograd (an
-operand that requires grad) the wrapper raises ``NotImplementedError``
-naming ROADMAP queue 1, item 15, where the backward kernel will come; on
-the CPU autograd differentiates the plain version.
+Training.  When autograd records (grad enabled and an operand that
+requires grad), :func:`rwkv6` runs through :class:`WKV6` on either
+device: the forward as above, and the backward :func:`rwkv6_bwd`, the
+hand-written kernels of ``csrc/rwkv6_bwd.cu`` on the card (launches in
+``rwkv6_bwd.launches``), which replace the XLA autodiff of the
+reference's ``rwkv6_chunked``; on the CPU its plain version
+:func:`rwkv6_bwd_plain` (calls in ``rwkv6_bwd_plain.calls``).  Both run a
+forward sweep that recomputes S and gives dr, then reverse sweeps of
+``G_t = dL/dS_t`` that give dk, dv, dw (from ``G_t`` and ``S_{t-1}``) and
+the start state's gradient; the kernel keeps S every ``BWD_TILE`` steps
+and recomputes each tile's states from there (the source states the math
+and the design).  :func:`grad_agreement` holds the backward kernel against
+autograd of :func:`rwkv6_plain`.
 """
 from __future__ import annotations
 
@@ -161,6 +170,8 @@ def _check(r, k, v, w, u, state0) -> None:
             raise ValueError(f"state0 on {state0.device}, operands on {k.device}")
 
 
+
+
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
           u: torch.Tensor, *, state0: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -170,26 +181,37 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     or bf16) and device; u ``[H, K]`` broadcasts over B; ``state0`` is an
     fp32 ``[B, H, K, V]`` start state (zeros when None).  On the card
     K = V = 64 and the last dim must have unit stride; the other strides
-    are read as they are.
+    are read as they are.  Differentiable: under autograd it runs through
+    :class:`WKV6`, whose backward is :func:`rwkv6_bwd`.
     """
     _check(r, k, v, w, u, state0)
-    if k.device.type == "cpu":
-        return rwkv6_plain(r, k, v, w, u, state0=state0)
-    if k.device.type != "cuda":
+    if k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rwkv6 runs on cpu or cuda, not {k.device}")
     ops = (r, k, v, w, u) + (() if state0 is None else (state0,))
     if torch.is_grad_enabled() and any(x.requires_grad for x in ops):
-        raise NotImplementedError(
-            "the rwkv6 kernel has no backward yet (ROADMAP queue 1, item 15): "
-            "rwkv (ssm) training runs on the CPU")
-    b, t, h, dk = k.shape
-    dv = v.shape[-1]
+        return WKV6.apply(r, k, v, w, u, state0)
+    return _forward(r, k, v, w, u, state0)
+
+
+def _check_kernel(r, k, v, w) -> None:
+    """What the CUDA kernels (forward and backward) take beyond
+    :func:`_check`: K = V = 64 and unit stride along the head dim."""
+    dk, dv = k.shape[-1], v.shape[-1]
     if dk != HEAD_SIZE or dv != HEAD_SIZE:
         raise ShapeContractError(
             f"the rwkv6 kernel takes K = V = {HEAD_SIZE}, got K {dk}, V {dv}",
             shapes=(k.shape, v.shape))
     if any(x.stride(3) != 1 for x in (r, k, v, w)):
         raise ValueError("rwkv6 needs unit stride along the head dim")
+
+
+def _forward(r, k, v, w, u, state0):
+    """The plain version on the CPU, else the kernel, counted."""
+    if k.device.type == "cpu":
+        return rwkv6_plain(r, k, v, w, u, state0=state0)
+    _check_kernel(r, k, v, w)
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
     uf = u.float().contiguous()
     s0 = None if state0 is None else state0.contiguous()
     out = torch.empty((b, t, h, dv), dtype=torch.float32, device=k.device)
@@ -202,8 +224,188 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                      out.data_ptr(), state.data_ptr(), _DTYPES[k.dtype], b, t,
                      h, dk, dv, *strides, stream)
     _build.check(err, "rwkv6")
-    rwkv6.launches += 1
+    _build.count(rwkv6)
     return out, state
 
 
 rwkv6.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV-6 recurrence with its hand-written backward.  The forward
+    saves its operands only (no state per step); the backward recomputes
+    the states in its sweeps.  Under ``torch.utils.checkpoint`` the forward
+    runs again in the backward pass, and is counted again."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        out, state = _forward(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        grads = rwkv6_bwd(r, k, v, w, u, dout, state0=state0, dstate=dstate)
+        return grads
+
+
+# The backward kernel against autograd of the plain forward on the same
+# operands (see :func:`grad_agreement`): flash attention's backward limits,
+# per gradient.  fp32: 1e-4 per element of |ref| plus its row's rms plus a
+# tenth of the gradient's rms, and 1e-5 in relative Frobenius norm (sums in
+# another order).  bf16 gradients (rounded once from fp32):
+# 2^-6 per element and 2^-7 in relative Frobenius norm.
+GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
+# steps per tile of the backward kernel's sweeps (csrc/rwkv6_bwd.cu): the
+# forward sweep keeps the state at the start of each, from which the reverse
+# sweep recomputes the tile's states for dw
+BWD_TILE = 16
+
+
+def grad_agreement(got, ref) -> dict:
+    """How far the backward's ``got = (dr, dk, dv, dw, du, dstate0)`` lies
+    from ``ref`` (autograd of :func:`rwkv6_plain` on the same operands),
+    per gradient and over all, in the form and limits of
+    :func:`~repro_torch.kernels.flash_attention.grad_agreement`; a
+    ``dstate0`` that is None on both sides is left out."""
+    from .flash_attention import grad_agreement as _grad_agreement
+
+    names = tuple(n for n, g, w in zip(GRAD_NAMES, got, ref, strict=True)
+                  if g is not None or w is not None)
+    pick = [(g, w) for g, w in zip(got, ref, strict=True)
+            if g is not None or w is not None]
+    return _grad_agreement([g for g, _ in pick], [w for _, w in pick],
+                           names=names)
+
+
+def rwkv6_bwd_plain(r, k, v, w, u, dout, *, state0=None, dstate=None):
+    """The plain version of :func:`rwkv6_bwd` on any device: a forward
+    sweep that keeps every state ``S_{t-1}`` and gives dr, then a reverse
+    sweep of ``G_t`` that gives dk, dv, dw and the start state's gradient;
+    fp32 sweeps, fp64 sums for du and the bonus terms."""
+    rwkv6_bwd_plain.calls += 1
+    dtype = k.dtype
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    dout = dout.float()
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
+    decay = torch.exp(-torch.exp(w))
+    vd = torch.einsum("bthv,bthv->bth", v.double(), dout.double())[..., None]
+    bonus = torch.einsum("bthk,hk,bthk->bth", r.double(), uf.double(),
+                         k.double()).float()[..., None]
+    s = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=k.device)
+         if state0 is None else state0.float().clone())
+    states = []                                  # S_{t-1} for every t
+    ys = torch.empty((b, t, h, dk), dtype=torch.float32, device=k.device)
+    for i in range(t):
+        states.append(s)
+        ys[:, i] = torch.einsum("bhkv,bhv->bhk", s, dout[:, i])
+        s = s * decay[:, i, :, :, None] + k[:, i, :, :, None] * v[:, i, :, None, :]
+    dr = ys + (uf.double() * k.double() * vd).float()
+    g = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=k.device)
+         if dstate is None else dstate.float().clone())
+    yk = torch.empty_like(ys)
+    dvv = torch.empty((b, t, h, dv), dtype=torch.float32, device=k.device)
+    dd = torch.empty_like(ys)                    # dL/dd_t = rowsum(G_t o S_{t-1})
+    for i in reversed(range(t)):
+        yk[:, i] = torch.einsum("bhkv,bhv->bhk", g, v[:, i])
+        dvv[:, i] = (torch.einsum("bhk,bhkv->bhv", k[:, i], g)
+                     + bonus[:, i] * dout[:, i])
+        dd[:, i] = (g * states[i]).sum(-1)
+        g = g * decay[:, i, :, :, None] + r[:, i, :, :, None] * dout[:, i, :, None, :]
+    dk_ = yk + (uf.double() * r.double() * vd).float()
+    dw = -torch.exp(w) * decay * dd
+    du = torch.einsum("bthk,bthk,bth->hk", r.double(), k.double(), vd[..., 0])
+    return (dr.to(dtype), dk_.to(dtype), dvv.to(dtype), dw.to(dtype),
+            du.to(u.dtype), None if state0 is None else g)
+
+
+rwkv6_bwd_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("rwkv6_bwd")
+    fn = lib.rwkv6_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor, *,
+              state0: Optional[torch.Tensor] = None,
+              dstate: Optional[torch.Tensor] = None):
+    """``(dr, dk, dv, dw, du, dstate0)`` of ``(out, state) = rwkv6(r, k, v,
+    w, u, state0=state0)`` given ``dout [B,T,H,V]``, the gradient of the
+    output, and ``dstate [B,H,K,V]`` (fp32, or None for 0), that of the
+    final state.  dr, dk, dv and dw come in the operands' dtype, du in
+    u's; ``dstate0`` (fp32) is None when ``state0`` is.
+
+    On the card (K = V = 64) the kernels of ``csrc/rwkv6_bwd.cu`` run in
+    one launch, counted in ``rwkv6_bwd.launches``; a CPU tensor takes
+    :func:`rwkv6_bwd_plain`.  Nothing falls back.
+    """
+    _check(r, k, v, w, u, state0)
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
+    if tuple(dout.shape) != (b, t, h, dv) or dout.device != k.device:
+        raise ShapeContractError(
+            f"rwkv6_bwd needs dout {(b, t, h, dv)} on {k.device}, got "
+            f"{tuple(dout.shape)} on {dout.device}", shapes=(dout.shape,))
+    if dstate is not None and (tuple(dstate.shape) != (b, h, dk, dv)
+                               or dstate.device != k.device):
+        raise ShapeContractError(
+            f"rwkv6_bwd needs dstate {(b, h, dk, dv)}, got "
+            f"{tuple(dstate.shape)}", shapes=(dstate.shape,))
+    if k.device.type == "cpu":
+        return rwkv6_bwd_plain(r, k, v, w, u, dout, state0=state0,
+                               dstate=dstate)
+    if k.device.type != "cuda":
+        raise ValueError(f"rwkv6_bwd runs on cpu or cuda, not {k.device}")
+    _check_kernel(r, k, v, w)
+    dev, dtype = k.device, k.dtype
+    uf = u.float().contiguous()
+    do = dout.float().contiguous()
+    s0 = None if state0 is None else state0.contiguous()
+    ds = None if dstate is None else dstate.float().contiguous()
+    dr, dkk, dvv, dw = (torch.empty((b, t, h, HEAD_SIZE), dtype=dtype,
+                                    device=dev) for _ in range(4))
+    du = torch.empty((h, dk), dtype=torch.float32, device=dev)
+    ds0 = (None if state0 is None else
+           torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev))
+    # scratch: S at the start of every BWD_TILE steps (the forward sweep's,
+    # from which the reverse sweep recomputes each tile's states), du's
+    # partial sums per (batch, head), and v_t . dout_t and the bonus scalar
+    # per (batch, step, head)
+    ck = torch.empty((b, -(-t // BWD_TILE), h, dk, dv), dtype=torch.float32,
+                     device=dev)
+    du_part = torch.empty((b, h, dk), dtype=torch.float64, device=dev)
+    vd = torch.empty((b, t, h), dtype=torch.float64, device=dev)
+    av = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+    strides = [st for x in (r, k, v, w) for st in x.stride()[:3]]
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         w.data_ptr(), uf.data_ptr(), ptr(s0), do.data_ptr(),
+                         ptr(ds), dr.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
+                         dw.data_ptr(), du.data_ptr(), ptr(ds0),
+                         ck.data_ptr(), du_part.data_ptr(), vd.data_ptr(),
+                         av.data_ptr(),
+                         _DTYPES[dtype], b, t, h, dk, dv, *strides, stream)
+    _build.check(err, "rwkv6_bwd")
+    _build.count(rwkv6_bwd)
+    return dr, dkk, dvv, dw, du.to(u.dtype), ds0
+
+
+rwkv6_bwd.launches = 0

@@ -36,10 +36,19 @@ reference's chunked associative scan, which counts its calls in
 ``selective_scan_plain.calls``); a CUDA tensor launches the kernel or
 raises.
 
-The kernel has no backward yet: on a CUDA tensor under autograd (an
-operand that requires grad) the wrapper raises ``NotImplementedError``
-naming ROADMAP queue 1, item 15, where the backward kernel will come; on
-the CPU autograd differentiates the plain version.
+Training.  When autograd records (grad enabled and an operand that
+requires grad), :func:`selective_scan` runs through :class:`SelectiveScan`
+on either device.  On the card its forward launch (the chosen instance,
+counted as above) also writes h at the start of every ``CHECKPOINT``
+steps, ``[B, ceil(T / 32), Di, N]`` fp32, and its backward is
+:func:`selective_scan_bwd`, the hand-written kernels of
+``csrc/selective_scan_bwd.cu`` (launches in ``selective_scan_bwd
+.launches``), which re-run each 32-step stretch forward from its
+checkpoint and scan it in reverse; they replace the XLA autodiff of the
+reference's scan.  On the CPU the backward is
+:func:`selective_scan_bwd_plain` (calls in ``selective_scan_bwd_plain
+.calls``), a reverse scan in plain torch.  The serve path writes no
+checkpoint.
 
 :func:`agreement` is :func:`~repro_torch.kernels.rwkv6.agreement`: the
 kernel and the plain version run in fp32 from the same inputs and differ
@@ -59,8 +68,9 @@ from ..mpc.errors import ShapeContractError
 from . import _build
 from .rwkv6 import agreement
 
-__all__ = ["agreement", "choose_instance", "selective_scan",
-           "selective_scan_plain", "STATES"]
+__all__ = ["agreement", "choose_instance", "grad_agreement", "selective_scan",
+           "selective_scan_bwd", "selective_scan_bwd_plain",
+           "selective_scan_plain", "SelectiveScan", "STATES"]
 
 CHUNK = 256                     # SSMConfig.chunk: the plain version's window
 STATES = (8, 16, 32)            # the kernel's N instances
@@ -68,6 +78,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's instances, as its C launcher numbers them
 _INSTANCE_IDS = {"tma": 1, "simple": 0}
 INSTANCES = tuple(_INSTANCE_IDS)
+CHECKPOINT = 32                 # steps between the forward's checkpoints
+GRAD_NAMES = ("du", "ddt", "da", "db", "dc")
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -133,7 +145,7 @@ selective_scan_plain.calls = 0
 def _lib():
     lib = _build.load("selective_scan")
     fn = lib.selective_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -195,16 +207,22 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (the CPU path); the kernel has none.
     """
     _check(u, dt, a, b_t, c_t)
-    if u.device.type == "cpu":
-        return selective_scan_plain(u, dt, a, b_t, c_t, chunk=chunk,
-                                    return_state=return_state)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"selective_scan runs on cpu or cuda, not {u.device}")
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in (u, dt, a, b_t, c_t)):
-        raise NotImplementedError(
-            "the selective_scan kernel has no backward yet (ROADMAP queue 1, "
-            "item 15): hybrid (jamba) training runs on the CPU")
+        y, state = SelectiveScan.apply(u, dt, a, b_t, c_t, chunk)
+        return (y, state) if return_state else y
+    if u.device.type == "cpu":
+        return selective_scan_plain(u, dt, a, b_t, c_t, chunk=chunk,
+                                    return_state=return_state)
+    y, state, _ = _forward(u, dt, a, b_t, c_t, return_state=return_state)
+    return (y, state) if return_state else y
+
+
+def _check_kernel(u, dt, a, b_t, c_t) -> None:
+    """What the CUDA kernels (forward and backward) take beyond
+    :func:`_check`: N in ``STATES`` and unit stride along the last dim."""
     n = a.shape[1]
     if n not in STATES:
         raise ShapeContractError(
@@ -212,18 +230,29 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             shapes=(a.shape,))
     if any(x.stride(2) != 1 for x in (u, dt, b_t, c_t)):
         raise ValueError("selective_scan needs unit stride along the last dim")
+
+
+def _forward(u, dt, a, b_t, c_t, *, return_state: bool,
+             checkpoints: bool = False):
+    """``(y, state or None, checkpoints or None)``: the chosen kernel on
+    CUDA operands, counted."""
+    _check_kernel(u, dt, a, b_t, c_t)
     instance = choose_instance(u, dt, b_t, c_t)
     out = _launch(u, dt, a, b_t, c_t, instance=instance,
-                  return_state=return_state)
+                  return_state=return_state, checkpoints=checkpoints)
     _build.count(selective_scan, instance)
-    return out
+    out = out if isinstance(out, tuple) else (out,)
+    return (out[0], out[1] if return_state else None,
+            out[-1] if checkpoints else None)
 
 
-def _launch(u, dt, a, b_t, c_t, *, instance: str,
-            return_state: bool = False) -> Result:
+def _launch(u, dt, a, b_t, c_t, *, instance: str, return_state: bool = False,
+            checkpoints: bool = False):
     """Launch one instance on checked CUDA operands, uncounted: the
     wrapper's path after :func:`choose_instance`, and the way to time or
-    check an instance the chooser would not pick."""
+    check an instance the chooser would not pick.  With ``checkpoints``
+    it also writes h at the start of every ``CHECKPOINT`` steps and returns
+    them last: ``(y[, state], hck)``."""
     if instance not in INSTANCES:
         raise ValueError(f"unknown selective_scan instance {instance!r}; "
                          f"known: {INSTANCES}")
@@ -233,17 +262,202 @@ def _launch(u, dt, a, b_t, c_t, *, instance: str,
     y = torch.empty((b, t, di), dtype=torch.float32, device=u.device)
     state = (torch.empty((b, di, n), dtype=torch.float32, device=u.device)
              if return_state else None)
+    hck = (torch.empty((b, -(-t // CHECKPOINT), di, n), dtype=torch.float32,
+                       device=u.device) if checkpoints else None)
     strides = [st for x in (u, dt, b_t, c_t) for st in x.stride()[:2]]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = _lib()(u.data_ptr(), dt.data_ptr(), ac.data_ptr(),
                      b_t.data_ptr(), c_t.data_ptr(), y.data_ptr(),
                      None if state is None else state.data_ptr(),
+                     None if hck is None else hck.data_ptr(),
                      _INSTANCE_IDS[instance], _DTYPES[u.dtype], b, t, di, n,
                      *strides, stream)
     _build.check(err, f"selective_scan ({instance})")
-    return (y, state) if return_state else y
+    out = (y, state) if return_state else (y,)
+    if checkpoints:
+        return out + (hck,)
+    return out if return_state else y
 
 
 selective_scan.launches = 0
 selective_scan.instances = dict.fromkeys(INSTANCES, 0)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan with its hand-written backward.  On the card the
+    forward keeps h every ``CHECKPOINT`` steps (the states the backward
+    re-runs from); on the CPU it keeps nothing, and the plain backward
+    recomputes the states.  Returns ``(y, state)``.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass,
+    and is counted again."""
+
+    @staticmethod
+    def forward(ctx, u, dt, a, b_t, c_t, chunk):
+        if u.device.type == "cpu":
+            y, state = selective_scan_plain(u, dt, a, b_t, c_t, chunk=chunk,
+                                            return_state=True)
+            hck = None
+        else:
+            y, state, hck = _forward(u, dt, a, b_t, c_t, return_state=True,
+                                     checkpoints=True)
+        ctx.save_for_backward(u, dt, a, b_t, c_t, hck)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        u, dt, a, b_t, c_t, hck = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        grads = selective_scan_bwd(u, dt, a, b_t, c_t, dy, dstate=dstate,
+                                   checkpoints=hck, chunk=ctx.chunk)
+        return grads + (None,)
+
+
+def grad_agreement(got, ref) -> dict:
+    """How far the backward's ``got = (du, ddt, da, db, dc)`` lies from
+    ``ref`` (autograd of :func:`selective_scan_plain` on the same operands),
+    per gradient and over all, in the form and limits of
+    :func:`~repro_torch.kernels.flash_attention.grad_agreement`."""
+    from .flash_attention import grad_agreement as _grad_agreement
+
+    return _grad_agreement(got, ref, names=GRAD_NAMES)
+
+
+def _states(u, dt, a, b_t, c_t, chunk):
+    """Every state ``h_t [B, T, Di, N]`` (fp32) and every decay ``e_t``,
+    by the plain version's chunked scan."""
+    bsz, t, di = u.shape
+    n = a.shape[-1]
+    e = torch.exp(dt[..., None] * a)                          # [B,T,Di,N]
+    inc = (dt * u)[..., None] * b_t[:, :, None, :]
+    h = torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+    hs = []
+    for c0 in range(0, t, chunk):
+        dc, ic = e[:, c0:c0 + chunk], inc[:, c0:c0 + chunk]
+        ic = torch.cat([ic[:, :1] + dc[:, :1] * h[:, None], ic[:, 1:]], dim=1)
+        _, acc = _inclusive_scan(dc, ic)
+        hs.append(acc)
+        h = acc[:, -1]
+    return torch.cat(hs, dim=1), e
+
+
+def selective_scan_bwd_plain(u, dt, a, b_t, c_t, dy, *, dstate=None,
+                             chunk: int = CHUNK):
+    """The plain version of :func:`selective_scan_bwd` on any device, in
+    fp32: the states by the forward's chunked scan, then ``G_t`` by the
+    same scan run backward in time (``G_t = c_t dy_t + e_{t+1} G_{t+1}``),
+    then the gradients as sums of products."""
+    selective_scan_bwd_plain.calls += 1
+    dtype = u.dtype
+    uf, dtf, bf, cf = (x.float() for x in (u, dt, b_t, c_t))
+    af, dy = a.float(), dy.float()
+    bsz, t, di = u.shape
+    n = a.shape[-1]
+    if t == 0:
+        return (torch.zeros_like(u), torch.zeros_like(dt), torch.zeros_like(af),
+                torch.zeros_like(b_t), torch.zeros_like(c_t))
+    hs, e = _states(uf, dtf, af, bf, cf, max(1, min(chunk, t)))
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    g_in = cf[:, :, None, :] * dy[..., None]                 # c_t dy_t
+    if dstate is not None:
+        g_in[:, -1] += dstate.float()
+    e_next = torch.cat([e[:, 1:], torch.ones_like(e[:, :1])], dim=1)
+    _, g = _inclusive_scan(e_next.flip(1), g_in.flip(1))
+    g = g.flip(1)                                             # G_t
+    eh = e * h_prev
+    du = dtf * torch.einsum("btdn,btn->btd", g, bf)
+    ddt = (torch.einsum("btdn,btd,btn->btd", g, uf, bf)
+           + torch.einsum("btdn,dn,btdn->btd", g, af, eh))
+    da = torch.einsum("btdn,btd,btdn->dn", g, dtf, eh)
+    db = torch.einsum("btdn,btd->btn", g, dtf * uf)
+    dc = torch.einsum("btdn,btd->btn", hs, dy)
+    return (du.to(dtype), ddt.to(dtype), da.to(a.dtype), db.to(dtype),
+            dc.to(dtype))
+
+
+selective_scan_bwd_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = _build.load("selective_scan_bwd")
+    fn = lib.selective_scan_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b_t: torch.Tensor, c_t: torch.Tensor, dy: torch.Tensor,
+                       *, dstate=None, checkpoints=None, chunk: int = CHUNK):
+    """``(du, ddt, da, db, dc)`` of ``(y, state) = selective_scan(u, dt, a,
+    b_t, c_t, return_state=True)`` given ``dy [B, T, Di]``, the gradient of
+    y, and ``dstate [B, Di, N]`` (or None for 0), that of the final state;
+    each in its operand's shape and dtype.
+
+    On the card (N in ``STATES``) ``checkpoints`` must be the forward
+    launch's ``[B, ceil(T / 32), Di, N]`` states; the kernels of
+    ``csrc/selective_scan_bwd.cu`` run in one launch, counted in
+    ``selective_scan_bwd.launches``.  A CPU tensor takes
+    :func:`selective_scan_bwd_plain` (``chunk`` is its forward's window).
+    Nothing falls back.
+    """
+    _check(u, dt, a, b_t, c_t)
+    bsz, t, di = u.shape
+    n = a.shape[1]
+    if tuple(dy.shape) != (bsz, t, di) or dy.device != u.device:
+        raise ShapeContractError(
+            f"selective_scan_bwd needs dy {(bsz, t, di)} on {u.device}, got "
+            f"{tuple(dy.shape)} on {dy.device}", shapes=(dy.shape,))
+    if dstate is not None and tuple(dstate.shape) != (bsz, di, n):
+        raise ShapeContractError(
+            f"selective_scan_bwd needs dstate {(bsz, di, n)}, got "
+            f"{tuple(dstate.shape)}", shapes=(dstate.shape,))
+    if u.device.type == "cpu":
+        return selective_scan_bwd_plain(u, dt, a, b_t, c_t, dy, dstate=dstate,
+                                        chunk=chunk)
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan_bwd runs on cpu or cuda, not "
+                         f"{u.device}")
+    _check_kernel(u, dt, a, b_t, c_t)
+    want = (bsz, -(-t // CHECKPOINT), di, n)
+    if (checkpoints is None or tuple(checkpoints.shape) != want
+            or checkpoints.dtype != torch.float32
+            or not checkpoints.is_contiguous()):
+        raise ShapeContractError(
+            f"selective_scan_bwd needs the forward's fp32 checkpoints {want}",
+            shapes=(None if checkpoints is None else checkpoints.shape,))
+    dev, dtype = u.device, u.dtype
+    nblk = -(-di // 32)
+    du, ddt = (torch.empty((bsz, t, di), dtype=dtype, device=dev)
+               for _ in range(2))
+    db, dc = (torch.empty((bsz, t, n), dtype=dtype, device=dev)
+              for _ in range(2))
+    da = torch.empty((di, n), dtype=torch.float32, device=dev)
+    # scratch: da per batch row, db and dc per block of 32 channels
+    da_part = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
+    db_part, dc_part = (torch.empty((bsz, nblk, t, n), dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+    dyc = dy.float().contiguous()
+    ds = None if dstate is None else dstate.float().contiguous()
+    ac = a.contiguous()
+    strides = [st for x in (u, dt, b_t, c_t) for st in x.stride()[:2]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_lib()(u.data_ptr(), dt.data_ptr(), ac.data_ptr(),
+                         b_t.data_ptr(), c_t.data_ptr(), checkpoints.data_ptr(),
+                         dyc.data_ptr(), None if ds is None else ds.data_ptr(),
+                         du.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+                         db.data_ptr(), dc.data_ptr(), da_part.data_ptr(),
+                         db_part.data_ptr(), dc_part.data_ptr(),
+                         _DTYPES[dtype], bsz, t, di, n, *strides, stream)
+    _build.check(err, "selective_scan_bwd")
+    _build.count(selective_scan_bwd)
+    return du, ddt, da, db, dc
+
+
+selective_scan_bwd.launches = 0

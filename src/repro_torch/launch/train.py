@@ -8,10 +8,11 @@ passes ``device="cpu"``).  CPU-scale (reduced configs)::
         --reduced --device cpu --steps 5
 
 At full width on the card (``--device cuda``, the default) every attention
-runs the flash kernel forward and its hand-written backward.  The ssm and
-hybrid families train on the CPU only: their recurrence kernels have no
-backward yet (ROADMAP queue 1, item 15).  Multi-card meshes and the
-per-arch sharding packages are ROADMAP queue 1, items 14 and 16.
+runs the flash kernel forward and its hand-written backward, and so do
+the WKV-6 recurrence (``rwkv6``, ``rwkv6_bwd``) and Mamba's selective scan
+(``selective_scan``, ``selective_scan_bwd``): all six families train on
+the card.  Multi-card meshes and the per-arch sharding packages are
+ROADMAP queue 1, items 14 and 16.
 """
 from __future__ import annotations
 

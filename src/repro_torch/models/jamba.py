@@ -16,9 +16,10 @@ as the JAX package computes both in XLA.  The family has no paged decode
 path and serves through ``Engine._generate_legacy``.
 
 :func:`loss_fn` (cross entropy plus ``0.01 * aux`` of the MoE) trains on
-the CPU, where the scan is the kernel's plain version; the scan kernel has
-no backward yet, so on the card it refuses under autograd (ROADMAP queue
-1, item 15).
+either device: under autograd the scan runs through
+:class:`~repro_torch.kernels.selective_scan.SelectiveScan`, whose backward
+is the hand-written ``selective_scan_bwd`` kernel on the card (from the
+forward launch's checkpoints) and its plain version on the CPU.
 """
 from __future__ import annotations
 

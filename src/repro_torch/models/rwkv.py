@@ -14,9 +14,10 @@ form is another schedule of the same function.  ``decode_step`` keeps the
 reference's inline fp32 update, as the JAX decode has no kernel either,
 and writes the cache in place.
 
-:func:`loss_fn` trains on the CPU, where the WKV is the kernel's plain
-version and autograd differentiates it; the kernel has no backward yet,
-so on the card it refuses under autograd (ROADMAP queue 1, item 15).
+:func:`loss_fn` trains on either device: under autograd the WKV runs
+through :class:`~repro_torch.kernels.rwkv6.WKV6`, whose backward is the
+hand-written ``rwkv6_bwd`` kernel on the card and its plain version on
+the CPU.
 
 Decode carries (shift_tm, shift_cm, wkv_state) per layer: constant memory,
 so the family has no paged decode path and serves through

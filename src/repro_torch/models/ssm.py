@@ -5,8 +5,10 @@ Port of ``repro/models/ssm.py``.  Recurrence (diagonal A):
 gated by silu(z).  Prefill runs the scan through
 :func:`~repro_torch.kernels.selective_scan.selective_scan`: the
 hand-written kernel on the card, the reference's chunked associative scan
-(its plain version) on the CPU.  Decode carries (conv window, ssm state)
-and takes one step in plain torch, as the JAX package computes it in XLA.
+(its plain version) on the CPU; under autograd its backward is the
+hand-written ``selective_scan_bwd`` kernel on the card.  Decode carries
+(conv window, ssm state) and takes one step in plain torch, as the JAX
+package computes it in XLA.
 
 The block's weights are a :class:`Mamba` module with the reference's key
 names.  The reference's ``shard(...)`` annotation is left out: on one card

@@ -89,19 +89,38 @@ class AdamW:
                                          device=stepf.device), stepf)
         lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
         for name, p in named.items():
-            g32 = grads[name].to(torch.float32)
-            if scale is not None:
-                g32 = g32 * scale
-            m32 = self.b1 * state.mu[name].to(torch.float32) + (1 - self.b1) * g32
-            n32 = (self.b2 * state.nu[name].to(torch.float32)
-                   + (1 - self.b2) * g32 * g32)
-            delta = (m32 / b1c) / (torch.sqrt(n32 / b2c) + self.eps)
-            p32 = p.to(torch.float32)
-            delta = delta + self.weight_decay * p32
-            p.copy_(p32 - lr * delta)
-            state.mu[name].copy_(m32)
-            state.nu[name].copy_(n32)
+            for pp, g, mu, nu in _pieces(p, grads[name], state.mu[name],
+                                         state.nu[name]):
+                g32 = g.to(torch.float32)
+                if scale is not None:
+                    g32 = g32 * scale
+                m32 = self.b1 * mu.to(torch.float32) + (1 - self.b1) * g32
+                n32 = (self.b2 * nu.to(torch.float32)
+                       + (1 - self.b2) * g32 * g32)
+                delta = (m32 / b1c) / (torch.sqrt(n32 / b2c) + self.eps)
+                p32 = pp.to(torch.float32)
+                delta = delta + self.weight_decay * p32
+                pp.copy_(p32 - lr * delta)
+                mu.copy_(m32)
+                nu.copy_(n32)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm
+
+
+# elements a weight's update takes at a time: its fp32 temporaries (about
+# seven live at once) then stay near 2 GB on the largest weights, where one
+# pass over jamba's [16, 4096, 14336] experts would hold about 25 GB
+_PIECE = 1 << 26
+
+
+def _pieces(p, g, mu, nu):
+    """``(p, g, mu, nu)`` as flat views of at most ``_PIECE`` elements (the
+    update is elementwise, so the pieces give its bits), or whole where a
+    tensor cannot be viewed flat."""
+    if p.numel() <= _PIECE or not all(x.is_contiguous() for x in (p, mu, nu)):
+        return [(p, g, mu, nu)]
+    return zip(p.view(-1).split(_PIECE), g.reshape(-1).split(_PIECE),
+               mu.view(-1).split(_PIECE), nu.view(-1).split(_PIECE),
+               strict=True)
 
 
 def global_norm(tree) -> torch.Tensor:

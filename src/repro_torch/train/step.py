@@ -87,7 +87,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
                 for a, g in zip(acc, grads, strict=True):
                     a.add_(g)
             loss = loss / mb
-            grads = [a / mb for a in acc]
+            # in place: a second fp32 copy of every gradient would not fit
+            # beside jamba's weights and moments on one card
+            grads = [a.div_(mb) for a in acc]
         else:
             loss, grads = grads_of(params, batch, weights)
             loss = loss.detach()

@@ -35,9 +35,15 @@ rms plus a tenth of the gradient's rms) at every head dim and dtype, the
 routed instance (``choose_bwd_instance``: ``wgmma`` for aligned bf16 at D
 64 and 128), the ``wgmma`` and ``mma_sync`` instances on the same operands
 (T = 1500, T != S, q_offset), the same bits twice, three planted faults
-rejected; the serve forward writing no lse; the recurrence kernels
-refusing under autograd (ROADMAP queue 1, item 15); one reduced fp32 train
-step on the card against the CPU's.  The selective scan's ``tma`` and
+rejected; the serve forward writing no lse; one reduced fp32 train step on the
+card against the CPU's.  The recurrences' backward kernels (``rwkv6_bwd``,
+``selective_scan_bwd``) against ``torch.autograd.grad`` of their plain
+forwards within ``rwkv6.grad_agreement`` and ``selective_scan
+.grad_agreement`` (the flash backward's limits), at the training
+microbatches cut in width, ragged T, both dtypes, with start and final
+state gradients; the same bits twice; planted faults rejected; both
+running under autograd, and reduced rwkv and jamba train steps on the card
+against the CPU's.  The selective scan's ``tma`` and
 ``simple`` instances on the same operands.
 
 Without the ``gpu`` marker (they run on the CPU; nothing launches): the
@@ -116,7 +122,8 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
     assert counts == {"modmatmul_batched": len(shapes) + 1,
                       "modmatmul": len(shapes), "polyeval": 0,
                       "flash_attention": 0, "flash_attention_bwd": 0,
-                      "rwkv6": 0, "ring_fold": 0, "selective_scan": 0}
+                      "rwkv6": 0, "rwkv6_bwd": 0, "ring_fold": 0,
+                      "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 # (W, M, K, N): the main path's product cut to 128, ragged edges in every
@@ -248,8 +255,9 @@ def test_gpu_session_is_exact_and_runs_the_kernels(cuda, p, mode):
         want)
     assert counts == {"modmatmul_batched": blocks, "modmatmul": 0,
                       "polyeval": 4 * blocks, "flash_attention": 0,
-                      "flash_attention_bwd": 0, "rwkv6": 0, "ring_fold": 0,
-                      "selective_scan": 0}
+                      "flash_attention_bwd": 0, "rwkv6": 0, "rwkv6_bwd": 0,
+                      "ring_fold": 0, "selective_scan": 0,
+                      "selective_scan_bwd": 0}
 
 
 # (B, T, S, Hq, Hkv, D, dtype, causal, q_offset)
@@ -842,9 +850,9 @@ def test_gpu_sharded_on_one_card_equals_local(cuda, p, wire, prg):
     assert torch.equal(got, local)
     assert counts == {"modmatmul_batched": 4 * blocks, "modmatmul": 0,
                       "polyeval": 13 * blocks, "flash_attention": 0,
-                      "flash_attention_bwd": 0, "rwkv6": 0,
+                      "flash_attention_bwd": 0, "rwkv6": 0, "rwkv6_bwd": 0,
                       "ring_fold": 12 * blocks if wire == "int32" else 0,
-                      "selective_scan": 0}
+                      "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -1260,30 +1268,286 @@ def test_gpu_serve_forward_writes_no_lse(cuda):
     assert all(torch.isfinite(x).all() for x in grads)
 
 
+# ------------------------------------- the recurrences' backward kernels
+# (B, T, H, dtype, w mean, state0 and dstate, strided): rwkv6-1.6b's training
+# microbatch cut in T and H, T a multiple of neither tile (16, 32), one
+# step, fast decay (w ~ N(0, 1)), strided views as the model's heads are,
+# rows that are not 16-byte aligned
+RWKV_BWD_CASES = [
+    (2, 256, 4, torch.bfloat16, -6.0, False, False),
+    (2, 300, 3, torch.float32, -6.0, True, False),
+    (1, 77, 2, torch.float32, 0.0, True, True),
+    (1, 1, 2, torch.float32, 0.0, False, False),
+    (3, 50, 5, torch.bfloat16, 0.0, True, "odd"),
+    (1, 1000, 32, torch.bfloat16, -6.0, False, False),
+]
+
+
+def _wkv_grad_ref(r, k, v, w, u, s0, dout, dstate):
+    """torch.autograd.grad of the plain forward on the same operands:
+    (dr, dk, dv, dw, du, dstate0 or None)."""
+    ops = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+    if s0 is not None:
+        ops.append(s0.detach().clone().requires_grad_())
+    out, state = rwkv6_plain(*ops[:5], state0=ops[5] if s0 is not None else None)
+    loss = (out * dout).sum()
+    if dstate is not None:
+        loss = loss + (state * dstate).sum()
+    # allow_unused: at T = 1 with no final-state gradient w reaches only
+    # the unused final state (its gradient is 0)
+    grads = torch.autograd.grad(loss, ops, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(ops, grads, strict=True)]
+    return tuple(grads) + ((None,) if s0 is None else ())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RWKV_BWD_CASES, ids=str)
+def test_gpu_rwkv6_bwd_kernel_equals_autograd_of_plain(cuda, case):
+    """dr, dk, dv, dw, du and dstate0 within ``rwkv6.grad_agreement`` of
+    autograd of the plain forward; one launch, no plain call; the same bits
+    twice; under autograd ``rwkv6`` runs the kernels both ways."""
+    from repro_torch.kernels import rwkv6 as wk
+
+    b, t, h, dtype, w_mean, states, strided = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * 100 + t + h)
+    r, k, v, w, u = _wkv_operands(g, b, t, h, dtype, w_mean, strided)
+    s0, ds = ((torch.randn((b, h, 64, 64), generator=g, device=cuda)
+               for _ in range(2)) if states else (None, None))
+    dout = torch.randn((b, t, h, 64), generator=g, device=cuda)
+    reset_launch_counts()
+    plain0 = wk.rwkv6_bwd_plain.calls
+    got = wk.rwkv6_bwd(r, k, v, w, u, dout, state0=s0, dstate=ds)
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6_bwd"] == 1 and wk.rwkv6_bwd_plain.calls == plain0
+    assert all(x.dtype == dtype for x in got[:4]) and got[4].dtype == u.dtype
+    assert (got[5] is None) == (s0 is None)
+    want = _wkv_grad_ref(r, k, v, w, u, s0, dout, ds)
+    a = wk.grad_agreement(got, want)
+    assert a["ok"], a
+    again = wk.rwkv6_bwd(r, k, v, w, u, dout, state0=s0, dstate=ds)
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again,
+                                                              strict=True))
+    ops = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+    reset_launch_counts()
+    out, state = rwkv6(*ops, state0=s0)
+    loss = (out * dout).sum() + (0 if ds is None else (state * ds).sum())
+    grads = torch.autograd.grad(loss, ops)
+    assert launch_counts()["rwkv6"] == 1 and launch_counts()["rwkv6_bwd"] == 1
+    assert wk.grad_agreement(list(grads) + [None], list(want[:5]) + [None])["ok"]
+
+
+@pytest.mark.gpu
+def test_gpu_rwkv6_bwd_check_rejects_planted_faults(cuda):
+    """The kernel passes; dw's sign flipped on the last tile, du with one
+    head dropped and the reverse sweep starting one step late fail the
+    same check."""
+    from repro_torch.kernels import rwkv6 as wk
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    ops = _wkv_operands(g, 2, 300, 4, torch.bfloat16, -6.0, False)
+    dout = torch.randn((2, 300, 4, 64), generator=g, device=cuda)
+    want = _wkv_grad_ref(*ops, None, dout, None)
+    got = wk.rwkv6_bwd(*ops, dout)
+    assert wk.grad_agreement(got, want)["ok"]
+    dw = got[3].clone()
+    dw[:, -wk.BWD_TILE:] *= -1
+    du = got[4].clone()
+    du[0] = 0
+    late = dout.clone()
+    late[:, -1] = 0
+    dr_late = wk.rwkv6_bwd_plain(*ops, late)
+    faults = {"dw sign flipped on the last tile": got[:3] + (dw,) + got[4:],
+              "du with one head dropped": got[:4] + (du, None),
+              "the reverse sweep one step late": (got[0],) + dr_late[1:4]
+              + got[4:]}
+    for name, bad in faults.items():
+        assert not wk.grad_agreement(bad, want)["ok"], name
+
+
+# (B, T, Di, N, dtype, dt mean, with dstate, strided): jamba's training
+# microbatch cut in Di (the served layout: views of wider tensors), a ragged
+# T, Di not a multiple of 32, N of 8 and 32, fp32, a large dt
+SCAN_BWD_CASES = [
+    (1, 2048, 256, 16, torch.bfloat16, -4.0, False, True),
+    (2, 300, 72, 16, torch.float32, -4.0, True, False),
+    (1, 77, 40, 8, torch.bfloat16, 0.0, True, True),
+    (2, 33, 64, 32, torch.float32, 1.0, False, False),
+    (1, 1, 16, 16, torch.float32, -4.0, True, False),
+]
+
+
+def _scan_grad_ref(u, dt, a, b_t, c_t, dy, dstate):
+    """torch.autograd.grad of the plain forward on the same operands:
+    (du, ddt, da, db, dc)."""
+    ops = [x.detach().clone().requires_grad_() for x in (u, dt, a, b_t, c_t)]
+    y, state = selective_scan_plain(*ops, return_state=True)
+    loss = (y * dy).sum()
+    if dstate is not None:
+        loss = loss + (state * dstate).sum()
+    return torch.autograd.grad(loss, ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=str)
+def test_gpu_selective_scan_bwd_kernel_equals_autograd_of_plain(cuda, case):
+    """du, ddt, da, db and dc within ``selective_scan.grad_agreement`` of
+    autograd of the plain forward, from the checkpoints of either forward
+    instance; one launch; the same bits twice; the serve forward writes no
+    checkpoint and its y equals the checkpointing launch's."""
+    from repro_torch.kernels import selective_scan as ss
+
+    b, t, di, n, dtype, dt_mean, with_ds, strided = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(b * 10 + t + di + n)
+    ops = _scan_operands(g, b, t, di, n, dtype, dt_mean, strided)
+    dy = torch.randn((b, t, di), generator=g, device=cuda)
+    ds = torch.randn((b, di, n), generator=g, device=cuda) if with_ds else None
+    want = _scan_grad_ref(*ops, dy, ds)
+    for instance in ss.INSTANCES:
+        y, _, hck = ss._launch(*ops, instance=instance, return_state=True,
+                               checkpoints=True)
+        assert hck.shape == (b, -(-t // 32), di, n)
+        assert torch.equal(y, ss._launch(*ops, instance=instance))
+        reset_launch_counts()
+        plain0 = ss.selective_scan_bwd_plain.calls
+        got = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
+        torch.cuda.synchronize()
+        assert launch_counts()["selective_scan_bwd"] == 1
+        assert ss.selective_scan_bwd_plain.calls == plain0
+        assert [x.dtype for x in got] == [dtype, dtype, torch.float32, dtype,
+                                          dtype]
+        a = ss.grad_agreement(got, want)
+        assert a["ok"], (instance, a)
+        again = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
+        assert all(torch.equal(x, y) for x, y in zip(got, again, strict=True))
+
+
+@pytest.mark.gpu
+def test_gpu_selective_scan_bwd_check_rejects_planted_faults(cuda):
+    """The kernel passes; h_{t-1} read from the wrong tile (checkpoints one
+    stretch off) and db without one block's partial fail the same check."""
+    from repro_torch.kernels import selective_scan as ss
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    ops = _scan_operands(g, 1, 400, 96, 16, torch.bfloat16, -4.0, True)
+    dy = torch.randn((1, 400, 96), generator=g, device=cuda)
+    want = _scan_grad_ref(*ops, dy, None)
+    _, _, hck = ss._launch(*ops, instance="tma", return_state=True,
+                           checkpoints=True)
+    got = ss.selective_scan_bwd(*ops, dy, checkpoints=hck)
+    assert ss.grad_agreement(got, want)["ok"]
+    wrong_tile = ss.selective_scan_bwd(*ops, dy,
+                                       checkpoints=hck.roll(1, dims=1).contiguous())
+    u, dt, a, b_t, c_t = ops
+    first = ss.selective_scan_bwd_plain(u[..., :32], dt[..., :32], a[:32], b_t,
+                                        c_t, dy[..., :32])
+    db = (got[3].float() - first[3].float()).to(got[3].dtype)
+    for name, bad in {"h_{t-1} from the wrong tile": wrong_tile,
+                      "db without one block": got[:3] + (db, got[4])}.items():
+        assert not ss.grad_agreement(bad, want)["ok"], name
+
+
 @pytest.mark.gpu
 def test_gpu_rwkv6_and_selective_scan_refuse_under_grad(cuda):
-    """Neither recurrence kernel has a backward yet: under autograd on the
-    card they refuse by name (ROADMAP queue 1, item 15); without it they
-    run."""
+    """The name is kept from when neither recurrence kernel had a backward
+    (ROADMAP ground rule 7).  Under autograd on the card both now run:
+    their forward kernels once, their backward kernels once, no plain
+    version; and rwkv's and jamba's loss_fn train through them."""
+    from repro_torch.kernels import rwkv6 as wk
+    from repro_torch.kernels import selective_scan as ss
+
     r = torch.randn((1, 8, 2, 64), device=cuda, requires_grad=True)
     u = torch.zeros((2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rwkv6(r, r, r, r, u)
-    with torch.no_grad():
-        rwkv6(r, r, r, r, u)
+    plain0 = (rwkv6_plain.calls, wk.rwkv6_bwd_plain.calls,
+              selective_scan_plain.calls, ss.selective_scan_bwd_plain.calls)
+    reset_launch_counts()
+    out, _ = rwkv6(r, r, r, r, u)
+    out.sum().backward()
+    assert launch_counts()["rwkv6"] == 1 and launch_counts()["rwkv6_bwd"] == 1
+    assert bool(torch.isfinite(r.grad).all())
     x = torch.randn((1, 8, 16), device=cuda, requires_grad=True)
     bc = torch.randn((1, 8, 16), device=cuda)
     a = -torch.ones((16, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        selective_scan(x, x, a, bc, bc)
-    with torch.no_grad():
-        selective_scan(x, x, a, bc, bc)
-    for arch, model in (("rwkv6-1.6b", rw), ("jamba-v0.1-52b", jb)):
-        cfg = reduced(get_config(arch))
+    selective_scan(x, x, a, bc, bc).sum().backward()
+    assert (launch_counts()["selective_scan"] == 1
+            and launch_counts()["selective_scan_bwd"] == 1)
+    assert bool(torch.isfinite(x.grad).all())
+    for arch, model, kernels in (("rwkv6-1.6b", rw, ("rwkv6", "rwkv6_bwd")),
+                                 ("jamba-v0.1-52b", jb, ("selective_scan",
+                                                         "selective_scan_bwd"))):
+        cfg = dataclasses.replace(reduced(get_config(arch)), remat=False)
         params = model.init_params(cfg, 0, device=cuda).requires_grad_(True)
         tok = torch.zeros((1, 16), dtype=torch.long, device=cuda)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            model.loss_fn(cfg, params, tok, tok)
+        reset_launch_counts()
+        loss = model.loss_fn(cfg, params, tok, tok)
+        grads = torch.autograd.grad(loss, list(params.parameters()),
+                                    allow_unused=True)
+        counts = launch_counts()
+        layers = (cfg.n_layers if arch.startswith("rwkv") else
+                  sum(not jb.is_attn_layer(cfg, l) for l in range(cfg.n_layers)))
+        assert all(counts[name] == layers for name in kernels), (arch, counts)
+        assert all(bool(torch.isfinite(x).all()) for x in grads if x is not None)
+    assert plain0 == (rwkv6_plain.calls, wk.rwkv6_bwd_plain.calls,
+                      selective_scan_plain.calls,
+                      ss.selective_scan_bwd_plain.calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_gpu_recurrent_train_step_matches_the_cpu(cuda, arch):
+    """Reduced rwkv6-1.6b and jamba in fp32 (remat on) on the card against
+    the CPU: every gradient leaf within 1e-5 relative Frobenius, and one
+    train step in 2 microbatches (the recurrence kernels forward twice and
+    backward once a layer and microbatch): loss, gnorm and the updated
+    weights (as one vector: Adam's first step moves an element by
+    ``lr g / (|g| + eps)``, which the last bits of a gradient near 0
+    decide; on jamba's zero-initialised ``conv_b`` the CPU's own fp32 step
+    lies farther than 1e-5 from an fp64 one) within 1e-5."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.step import (
+        TrainConfig,
+        make_optimizer,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+    model = get_model(cfg)
+    tc = TrainConfig(warmup=0, seq_chunk=32, microbatches=2)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "targets")}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = model.init_params(cfg, 0, device="cpu").to(dev).requires_grad_(True)
+        on = {k: v.to(dev) for k, v in batch.items()}
+        named = dict(params.named_parameters())
+        grads = torch.autograd.grad(
+            model.loss_fn(cfg, params, on["tokens"], on["targets"], seq_chunk=32),
+            list(named.values()), allow_unused=True)
+        grads = {n: (torch.zeros_like(w) if g is None else g).detach().cpu()
+                 for (n, w), g in zip(named.items(), grads, strict=True)}
+        opt_state = make_optimizer(tc).init(params)
+        reset_launch_counts()
+        params, _, m = make_train_step(cfg, tc)(params, opt_state, on)
+        out[str(dev)] = (m, grads, torch.cat([p.detach().cpu().reshape(-1) for p
+                                              in params.parameters()]),
+                         launch_counts())
+    (mc, gc, wc, _), (mg, gg, wg, counts) = out["cpu"], out[str(cuda)]
+    fwd, bwd = (("rwkv6", "rwkv6_bwd") if arch.startswith("rwkv")
+                else ("selective_scan", "selective_scan_bwd"))
+    layers = (cfg.n_layers if arch.startswith("rwkv") else
+              sum(not jb.is_attn_layer(cfg, l) for l in range(cfg.n_layers)))
+    assert counts[fwd] == 2 * 2 * layers and counts[bwd] == 2 * layers, counts
+    for name, want in gc.items():
+        assert float((gg[name] - want).norm()) <= 1e-5 * float(want.norm()), name
+    for key in ("loss", "gnorm", "lr"):
+        assert float(mg[key]) == pytest.approx(float(mc[key]), rel=1e-5)
+    assert float((wg - wc).norm()) <= 1e-5 * float(wc.norm())
 
 
 @pytest.mark.gpu

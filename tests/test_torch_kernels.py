@@ -27,8 +27,8 @@ from repro_torch.kernels.modmatmul import (
 )
 from repro_torch.kernels.polyeval import polyeval
 from repro_torch.kernels.ring_fold import ring_fold
-from repro_torch.kernels.rwkv6 import rwkv6
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_bwd
+from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
 from repro_torch.mpc.errors import ShapeContractError
 
 PRIMES = [P_DEFAULT, P_MERSENNE31]
@@ -156,10 +156,14 @@ def test_cpu_tensors_launch_nothing():
     z = torch.ones((1, 3, 4))
     selective_scan(z, z, -torch.ones((4, 8)), z[..., :1].expand(1, 3, 8),
                    z[..., :1].expand(1, 3, 8))
+    rwkv6_bwd(y, y, y, y, torch.ones((2, 64)), y)
+    selective_scan_bwd(z, z, -torch.ones((4, 8)), z[..., :1].expand(1, 3, 8),
+                       z[..., :1].expand(1, 3, 8), z)
     assert launch_counts() == {"modmatmul_batched": 0, "modmatmul": 0,
                                "polyeval": 0, "flash_attention": 0,
                                "flash_attention_bwd": 0, "rwkv6": 0,
-                               "ring_fold": 0, "selective_scan": 0}
+                               "rwkv6_bwd": 0, "ring_fold": 0,
+                               "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 # ---------------------------------------------------------------- polyeval
