@@ -191,13 +191,22 @@
    ``grad_agreement`` (the flash backward's limits) at the training
    microbatches (rwkv6-1.6b ``[2,2048,32,64]`` bf16; jamba ``[1,2048,8192,
    16]`` bf16 on the model's strided views), fp32 with fast decay and both
-   state gradients, and a ragged T; the same bits twice; the scan's
-   backward also from the ``simple`` instance's checkpoints; three planted
-   faults for WKV-6 (dw's sign flipped on the last tile, du without a head,
-   the reverse sweep a step late) and two for the scan (h_{t-1} from the
-   wrong tile, db without one block's partial) must fail; times each beside
-   its plain version, autograd of the plain forward and the bound, and the
-   scan's checkpointing forward beside the serve forward.
+   state gradients, and a ragged T; the routed instance (``rwkv6_bwd``:
+   ``chunked`` for bf16, ``sweep`` for fp32; ``selective_scan_bwd``:
+   ``tma``) and ``sweep`` beside it, each within the limits and the two
+   within them of each other; the same bits twice; the scan's backward also
+   from the ``simple`` instance's checkpoints; five planted faults for
+   WKV-6 (dw's sign flipped on the last tile, du without a head, the
+   reverse sweep a step late, a chunk state from the wrong chunk, a gate
+   referenced to the wrong sub-chunk) and three for the scan (h_{t-1} from
+   the wrong tile, e_t one step off in G's chain, db without one block's
+   partial) must fail; the chunked kernel against its own plain version,
+   and on fp32 operands (never routed there) within bf16's relative
+   Frobenius limit, its reading against fp32's printed; times both
+   instances of each interleaved (sweep, new, new, sweep; CUDA graphs)
+   beside the plain versions, autograd of the plain forward and the
+   function's bound (at TF32's rate for ``chunked``), and the scan's
+   checkpointing forward beside the serve forward.
 15. The train phase: llama3.2-1b at full width and depth (bf16 weights from
    ``--seed``, fp32 AdamW, remat per layer) through
    ``launch.train.train_loop`` on one repeated batch of 4 x 2048 tokens for
@@ -214,11 +223,13 @@
    launches a step); rwkv6-1.6b at full width and depth (24 layers, bf16)
    through ``train_loop`` on one repeated batch of 4 x 2048 tokens in its 2
    microbatches for 8 steps: 96 ``rwkv6`` and 48 ``rwkv6_bwd`` launches a
-   step and nothing else, the loss falling by ``RWKV_TRAIN_DROP``;
+   step (every one ``chunked``) and nothing else, the loss falling by
+   ``RWKV_TRAIN_DROP``;
    jamba-v0.1-52b at its published width cut to its first 2 layers (Mamba +
    dense MLP, Mamba + MoE; 3.73 B parameters) in its 4 microbatches for 6
    steps: 16 ``selective_scan`` (the ``tma`` instance, with checkpoints)
-   and 8 ``selective_scan_bwd`` launches a step, the loss falling by
+   and 8 ``selective_scan_bwd`` launches a step (every one ``tma``), the
+   loss falling by
    ``JAMBA_TRAIN_DROP``; ms per step, tokens/s, peak memory and a profiled
    step's device busy share for each; and a reduced fp32 step of each
    family on the card against the CPU's (loss, gnorm and every weight
@@ -245,6 +256,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 FP32_OPS_PER_S = 67e12
 
 D_MODEL, VOCAB = 2048, 128256      # llama3.2-1b: hidden size, vocabulary
@@ -904,6 +916,12 @@ def batched_phase(torch, np, dev, a, b, local_walls):
             "peak_gib": peak / 2**30}
 
 
+# (a)'s reply deadline: the thread-mode wire of a block (3 GB through
+# Python threads) took up to 20 s a worker on an H100 host and 49 s on a
+# slower one, past the transport's default 30 s
+REMOTE_DEADLINE_S = 120.0
+
+
 def remote_phase(torch, dev, a, b, local):
     """The remote backend on the card (phase 6c): the lm_head's first
     ``REMOTE_COLS`` columns at m = 2048 (N = 17, the main path's block)
@@ -945,7 +963,11 @@ def remote_phase(torch, dev, a, b, local):
           f"MB, I point {8 * blk * blk / 1e6:.1f} MB each way))", flush=True)
 
     rec = PhaseRecorder()
-    sess = connect(spec, backend="remote", recorder=rec)
+    # (a) reads the path with no fault: a reply is awaited REMOTE_DEADLINE_S
+    # before the driver re-asks (a re-ask recomputes on the worker, so it
+    # would add launches to the counts held below)
+    sess = connect(spec, backend="remote", recorder=rec,
+                   deadline_s=REMOTE_DEADLINE_S)
     require(sess.device == dev and sess.backend.device == dev,
             f"remote session on {sess.device}")
 
@@ -2125,6 +2147,22 @@ def wkv_bwd_work(b, t, h, elem_bytes):
     return nbytes, 10 * kv * b * t * h
 
 
+def wkv_chunked_work(b, t, h, elem_bytes):
+    """(bytes, TF32 flops) of the chunked instance's own work at K = V = 64
+    and chunks of 64: the function's bytes (:func:`wkv_bwd_work`) plus its
+    fp32 scratch, each written once and read once: the chunks' products
+    (both roles) and the chunk states S and G; its wgmma products per
+    chunk: the chunk products (64^3, the G role three times over for
+    3xTF32), A = dout v^T (64^3), the sub-chunk states (6 of 64 x 64 x 16)
+    and the state terms of dr, dk, dv (12 of 64 x 16 x 64)."""
+    nbytes, _ = wkv_bwd_work(b, t, h, elem_bytes)
+    n = -(-t // 64)
+    nbytes += 2 * 4 * 4 * b * n * h * RWKV_HEAD * RWKV_HEAD
+    macs = (64 ** 3 + 3 * 64 ** 3 + 64 ** 3
+            + 6 * 64 * 64 * 16 + 12 * 64 * 16 * 64)
+    return nbytes, 2 * macs * b * n * h
+
+
 def scan_bwd_work(b, t, di, n, elem_bytes):
     """(bytes, fp32 operations) of one scan backward: u, dt read and du,
     ddt written in their dtype, dy and the checkpoints read in fp32, b, c
@@ -2183,15 +2221,54 @@ def wkv_bwd_faults(ops, dout, got):
     yield "the reverse sweep one step late", (got[0],) + bad[1:4] + got[4:]
 
 
+@contextlib.contextmanager
+def planted(module, name, fn):
+    """``module.name`` replaced by ``fn`` for the block: a fault planted in
+    a plain version's arithmetic, for the checks to reject."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def wkv_chunked_faults(ops, dout):
+    """Two wrong backwards in the chunked instance's arithmetic (its plain
+    version, planted): each chunk handed the start state of the chunk
+    before it, and the sums of log-decay before and after each step of a
+    sub-chunk swapped (every gate referenced to the sub-chunk's wrong
+    end)."""
+    from repro_torch.kernels import rwkv6 as wk
+
+    scan, sums = wk._chunk_scan, wk._gate_sums
+
+    def shifted(tot, x, init, *, reverse=False):
+        states, last = scan(tot, x, init, reverse=reverse)
+        return (states if reverse else states[:1] + states[:-1]), last
+
+    for what, name, fn in (
+            ("a chunk state from the wrong chunk", "_chunk_scan", shifted),
+            ("a gate referenced to the wrong sub-chunk", "_gate_sums",
+             lambda lq: sums(lq)[::-1])):
+        with planted(wk, name, fn):
+            bad = wk.rwkv6_bwd_chunked_plain(*ops, dout)
+        yield what, bad
+
+
 def scan_bwd_faults(ops, dy, hck, got):
-    """Two wrong backwards for ``grad_agreement`` to reject: the kernel fed
-    the checkpoints one stretch off (h_{t-1} from the wrong tile), and db
+    """Three wrong backwards for ``grad_agreement`` to reject: the kernel fed
+    the checkpoints one stretch off (h_{t-1} from the wrong tile), db
     without the first block's partial (its 32 channels' share, from the
-    plain backward)."""
+    plain backward), and G's chain with the kept e_t one step off (the
+    plain backward's planted fault)."""
     from repro_torch.kernels import selective_scan as ss
 
     yield "h_{t-1} read from the wrong tile", ss.selective_scan_bwd(
         *ops, dy, checkpoints=hck.roll(1, dims=1).contiguous())
+    with planted(ss, "_next_decay", lambda e: e):
+        bad = ss.selective_scan_bwd_plain(*ops, dy)
+    yield "e_t one step off in G's chain", bad
     u, dt, a, b_t, c_t = ops
     first = ss.selective_scan_bwd_plain(u[..., :32], dt[..., :32], a[:32], b_t,
                                         c_t, dy[..., :32])
@@ -2199,12 +2276,24 @@ def scan_bwd_faults(ops, dy, hck, got):
     yield "db without one block's partial", got[:3] + (db, got[4])
 
 
+def interleaved_ms(torch, fns, order, iters):
+    """Each of ``fns`` (name: call) timed by :func:`graph_ms` in ``order``
+    (one name after another, e.g. old, new, new, old, so that a drift of
+    the card's clock falls on both); the least time of each name."""
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(graph_ms(torch, fns[name], iters))
+    return {name: min(t) for name, t in times.items()}
+
+
 def recurrent_bwd_phase(torch, dev, gen, sms):
     """Hold ``rwkv6_bwd`` and ``selective_scan_bwd`` against
     ``torch.autograd.grad`` of their plain forwards at the training shapes,
-    with the planted faults; the same bits twice; time each beside its
-    plain version and bound, and the scan's checkpointing forward beside
-    the serve forward.  Returns a record per kernel."""
+    each instance (the routed one and ``sweep``) and the two against each
+    other, with the planted faults; the same bits twice; time both
+    instances interleaved (CUDA graphs) beside the plain versions and the
+    bounds, and the scan's checkpointing forward beside the serve forward.
+    Returns a record per kernel."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (
@@ -2232,57 +2321,110 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
                                device=dev) for _ in range(2))
                   if states else (None, None))
         dout = torch.randn(shape, generator=gen, device=dev)
+        routed = wk.choose_bwd_instance(*ops[:4])
+        require(routed == ("chunked" if dtype == torch.bfloat16 else "sweep"),
+                f"rwkv6_bwd {what}: the chooser took {routed} for {dt_name}")
         reset_launch_counts()
         plain0 = wk.rwkv6_bwd_plain.calls
         got = wk.rwkv6_bwd(*ops, dout, state0=s0, dstate=ds)
         torch.cuda.synchronize()
         require(launch_counts()["rwkv6_bwd"] == 1
+                and instance_counts()["rwkv6_bwd"][routed] == 1
                 and wk.rwkv6_bwd_plain.calls == plain0,
-                f"rwkv6_bwd {what}: launches {launch_counts()}")
+                f"rwkv6_bwd {what}: launches {launch_counts()}, instances "
+                f"{instance_counts()['rwkv6_bwd']}")
         want = wkv_grad_ref(torch, ops, s0, dout, ds)
         require(all(bool(torch.isfinite(x).all()) for x in got if x is not None),
                 f"rwkv6_bwd {what}: a non-finite gradient")
         agree = wk.grad_agreement(got, want)
-        require(agree["ok"], f"rwkv6_bwd {what}: kernel != autograd of plain "
-                f"({bwd_readings(agree)})")
+        require(agree["ok"], f"rwkv6_bwd {what}: kernel [{routed}] != autograd "
+                f"of plain ({bwd_readings(agree)})")
         again = wk.rwkv6_bwd(*ops, dout, state0=s0, dstate=ds)
         require(all(x is None or torch.equal(x, y)
                     for x, y in zip(got, again, strict=True)),
                 f"rwkv6_bwd {what}: a second launch gave other bits")
         print(f"  rwkv6_bwd {what} [{b},{t},{h},64] {dt_name}, w ~ N({w_mean:g},"
-              f" 1){', state0 and dstate' if states else ''}: "
-              f"{bwd_readings(agree)}; the same bits twice",
-              flush=True)
+              f" 1){', state0 and dstate' if states else ''}: [{routed}] "
+              f"{bwd_readings(agree)}; the same bits twice", flush=True)
+        if routed == "chunked":
+            sweep = wk._bwd_launch(*ops, dout, state0=s0, dstate=ds,
+                                   instance="sweep")
+            a_s = wk.grad_agreement(sweep, want)
+            a_x = wk.grad_agreement(got, sweep)
+            require(a_s["ok"] and a_x["ok"], f"rwkv6_bwd {what}: sweep against "
+                    f"autograd ({bwd_readings(a_s)}), chunked against sweep "
+                    f"({bwd_readings(a_x)})")
+            print(f"    [sweep] {bwd_readings(a_s)}; chunked against sweep: "
+                  f"{bwd_readings(a_x)}", flush=True)
+        else:
+            # chunked on fp32 operands, never routed there: its TF32
+            # products against fp32's limits, the reading that keeps fp32
+            # on sweep
+            tf32 = wk.grad_agreement(wk._bwd_launch(
+                *ops, dout, state0=s0, dstate=ds, instance="chunked"), want)
+            frob = {n: tf32[n]["rel_frob"] for n in wk.GRAD_NAMES if n in tf32}
+            require(all(f <= 2.0 ** -7 for f in frob.values()),
+                    f"rwkv6_bwd {what}: chunked on fp32 operands past bf16's "
+                    f"limit ({bwd_readings(tf32)})")
+            rec["rwkv6_bwd_fp32_chunked"] = {"case": what, "ok": tf32["ok"],
+                                             "rel_frob": frob}
+            print(f"    [chunked] on fp32 operands (TF32 products; dstate0's "
+                  f"chunk products 3xTF32): {bwd_readings(tf32)}; within "
+                  f"fp32's limits: {tf32['ok']}", flush=True)
         if timed:
-            for fault, bad in wkv_bwd_faults(ops, dout, got):
+            faults = list(wkv_bwd_faults(ops, dout, got))
+            faults += list(wkv_chunked_faults(ops, dout))
+            for fault, bad in faults:
                 a = wk.grad_agreement(bad, want)
                 require(not a["ok"], f"rwkv6_bwd: the check accepts a planted "
                         f"fault ({fault}: {bwd_readings(a)})")
                 print(f"    control, {fault}: rejected (worst rel. Frobenius "
                       f"{max(a[n]['rel_frob'] for n in wk.GRAD_NAMES if n in a):.3e})",
                       flush=True)
+            plain = wk.rwkv6_bwd_chunked_plain(*ops, dout)
+            a_p = wk.grad_agreement(got, plain)
+            require(a_p["ok"], f"rwkv6_bwd {what}: kernel != its plain version "
+                    f"({bwd_readings(a_p)})")
+            # the function's bound at the routed instance's rate: TF32
+            # products for chunked (bf16 operands), fp32 for sweep
             nbytes, flops = wkv_bwd_work(b, t, h, ops[0].element_size())
-            bms, by = bound(nbytes, flops, FP32_OPS_PER_S)
+            bms, by = bound(nbytes, flops, TF32_OPS_PER_S if routed == "chunked"
+                            else FP32_OPS_PER_S)
+            cbytes, cflops = wkv_chunked_work(b, t, h, ops[0].element_size())
+            cbms, cby = bound(cbytes, cflops, TF32_OPS_PER_S)
+            timed_ms = interleaved_ms(torch, {
+                inst: (lambda inst=inst: wk._bwd_launch(*ops, dout,
+                                                        instance=inst))
+                for inst in wk.BWD_INSTANCES},
+                ("sweep", "chunked", "chunked", "sweep"), 10)
             rec["rwkv6_bwd"] = r_ = {
                 "shape": f"{dt_name} r, k, v, w [{b},{t},{h},64], fp32 dout",
+                "instance": routed,
                 "max_abs_err": max(agree[n]["max_abs_err"] for n in
                                    wk.GRAD_NAMES if n in agree),
                 "rel_frob": {n: agree[n]["rel_frob"] for n in wk.GRAD_NAMES
                              if n in agree},
-                "ms": time_ms(torch, lambda: wk.rwkv6_bwd(*ops, dout), 10),
-                "plain_ms": time_ms(torch, lambda: wk.rwkv6_bwd_plain(*ops, dout),
-                                    1),
+                "ms": timed_ms["chunked"], "sweep_ms": timed_ms["sweep"],
+                "plain_ms": time_ms(torch, lambda: wk.rwkv6_bwd_chunked_plain(
+                    *ops, dout), 1),
                 "autograd_plain_ms": time_ms(torch, lambda: wkv_grad_ref(
                     torch, ops, None, dout, None), 1),
                 "forward_ms": time_ms(torch, lambda: wk.rwkv6(*ops), 10),
                 "bound_ms": bms, "bound_by": by,
-                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-            print(f"    kernel {r_['ms']:.4f} ms (the forward at this shape "
-                  f"{r_['forward_ms']:.4f} ms), plain {r_['plain_ms']:.2f} ms, "
-                  f"autograd of the plain forward {r_['autograd_plain_ms']:.2f} "
-                  f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP; "
-                  f"{nbytes / 1e6:.1f} MB take {r_['bytes_ms']:.4f} ms): "
-                  f"{100 * bms / r_['ms']:.1f} % of the bound", flush=True)
+                "fp32_ops_ms": flops / FP32_OPS_PER_S * 1e3}
+            print(f"    kernel [chunked] {r_['ms']:.4f} ms, sweep {r_['sweep_ms']:.4f}"
+                  f" ms (CUDA graphs, interleaved sweep, chunked, chunked, "
+                  f"sweep; the forward at this shape {r_['forward_ms']:.4f} ms), "
+                  f"plain {r_['plain_ms']:.2f} ms, autograd of the plain forward "
+                  f"{r_['autograd_plain_ms']:.2f} ms; the function's bound "
+                  f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; {flops / 1e9:.2f} "
+                  f"GFLOP take {flops / TF32_OPS_PER_S * 1e3:.4f} ms at TF32's "
+                  f"rate, {r_['fp32_ops_ms']:.4f} ms at fp32's, the sweep's "
+                  f"yardstick): {100 * bms / r_['ms']:.1f} % of it; with the "
+                  f"chunked design's fp32 scratch and its {cflops / 1e9:.2f} "
+                  f"GFLOP of TF32 products, {cbms:.4f} ms ({cby}: "
+                  f"{cbytes / 1e6:.1f} MB); the kernel against its plain "
+                  f"version: {bwd_readings(a_p)}", flush=True)
         del ops, s0, ds, dout, got, want, again, r, k, v, w
         torch.cuda.empty_cache()
 
@@ -2300,25 +2442,39 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
         dy = torch.randn((b, t, SCAN_DI), generator=gen, device=dev)
         ds = (torch.randn((b, SCAN_DI, SCAN_N), generator=gen, device=dev)
               if with_ds else None)
+        routed = ss.choose_bwd_instance(ops[0], ops[1], ops[3], ops[4])
+        other = "sweep" if routed == "tma" else "tma"
+        require(routed == ("tma" if dtype == torch.bfloat16 else "sweep"),
+                f"selective_scan_bwd {what}: the chooser took {routed} for the "
+                f"model's {dt_name} views")
         reset_launch_counts()
         plain0 = ss.selective_scan_bwd_plain.calls
         _, _, hck = ss._forward(*ops, return_state=True, checkpoints=True)
         got = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
         torch.cuda.synchronize()
         require(launch_counts()["selective_scan_bwd"] == 1
+                and instance_counts()["selective_scan_bwd"][routed] == 1
                 and instance_counts()["selective_scan"]["tma"] == 1
                 and ss.selective_scan_bwd_plain.calls == plain0,
                 f"selective_scan_bwd {what}: launches {launch_counts()}, "
-                f"instances {instance_counts()['selective_scan']}")
+                f"instances {instance_counts()['selective_scan']}, "
+                f"{instance_counts()['selective_scan_bwd']}")
         want = scan_grad_ref(torch, ops, dy, ds)
         require(all(bool(torch.isfinite(x).all()) for x in got),
                 f"selective_scan_bwd {what}: a non-finite gradient")
         agree = ss.grad_agreement(got, want)
-        require(agree["ok"], f"selective_scan_bwd {what}: kernel != autograd of "
-                f"plain ({bwd_readings(agree)})")
+        require(agree["ok"], f"selective_scan_bwd {what}: kernel [{routed}] != "
+                f"autograd of plain ({bwd_readings(agree)})")
         again = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
         require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)),
                 f"selective_scan_bwd {what}: a second launch gave other bits")
+        sweep = ss._bwd_launch(*ops, dy, dstate=ds, checkpoints=hck,
+                               instance=other)
+        a_s = ss.grad_agreement(sweep, want)
+        a_x = ss.grad_agreement(got, sweep)
+        require(a_s["ok"] and a_x["ok"], f"selective_scan_bwd {what}: {other} "
+                f"against autograd ({bwd_readings(a_s)}), {routed} against "
+                f"{other} ({bwd_readings(a_x)})")
         # the simple instance's checkpoints feed the same backward
         _, _, hck_s = ss._launch(*ops, instance="simple", return_state=True,
                                  checkpoints=True)
@@ -2327,10 +2483,22 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
         require(agree_s["ok"], f"selective_scan_bwd {what} from the simple "
                 f"instance's checkpoints: {bwd_readings(agree_s)}")
         print(f"  selective_scan_bwd {what} [{b},{t},{SCAN_DI},{SCAN_N}] "
-              f"{dt_name}{', dstate' if with_ds else ''}: "
-              f"{bwd_readings(agree)}; the same bits twice; "
+              f"{dt_name}{', dstate' if with_ds else ''}: [{routed}] "
+              f"{bwd_readings(agree)}; the same bits twice; [{other}] "
+              f"{bwd_readings(a_s)}; {routed} against {other}: "
+              f"{bwd_readings(a_x)}; "
               f"from the simple instance's checkpoints within the limits too",
               flush=True)
+        if dtype == torch.float32:      # the chooser's fp32 rule, on the card
+            fp32_ms = interleaved_ms(torch, {
+                inst: (lambda inst=inst: ss._bwd_launch(
+                    *ops, dy, dstate=ds, checkpoints=hck, instance=inst))
+                for inst in ss.BWD_INSTANCES}, ("sweep", "tma", "tma", "sweep"),
+                5)
+            rec["selective_scan_bwd_fp32"] = fp32_ms
+            print(f"    fp32 operands: [sweep] {fp32_ms['sweep']:.4f} ms, tma "
+                  f"{fp32_ms['tma']:.4f} ms (CUDA graphs, interleaved)",
+                  flush=True)
         if timed:
             for fault, bad in scan_bwd_faults(ops, dy, hck, got):
                 f = ss.grad_agreement(bad, want)
@@ -2345,15 +2513,20 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
             bms, by = bound(nbytes, ops_n, FP32_OPS_PER_S)
             exps = b * t * SCAN_DI * SCAN_N
             mufu_ms = exps / (MUFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
+            timed_ms = interleaved_ms(torch, {
+                inst: (lambda inst=inst: ss._bwd_launch(
+                    *ops, dy, checkpoints=hck, instance=inst))
+                for inst in ss.BWD_INSTANCES}, ("sweep", "tma", "tma", "sweep"),
+                10)
             rec["selective_scan_bwd"] = r_ = {
                 "shape": f"{dt_name} u, dt [{b},{t},{SCAN_DI}] (u a view of "
                          f"[{b},{t},{2 * SCAN_DI}]), b, c [{b},{t},{SCAN_N}] "
                          f"(views), fp32 dy and checkpoints",
+                "instance": routed,
                 "max_abs_err": max(agree[n]["max_abs_err"]
                                    for n in ss.GRAD_NAMES),
                 "rel_frob": {n: agree[n]["rel_frob"] for n in ss.GRAD_NAMES},
-                "ms": time_ms(torch, lambda: ss.selective_scan_bwd(
-                    *ops, dy, checkpoints=hck), 10),
+                "ms": timed_ms["tma"], "sweep_ms": timed_ms["sweep"],
                 "plain_ms": time_ms(torch, lambda: ss.selective_scan_bwd_plain(
                     *ops, dy), 1),
                 "autograd_plain_ms": time_ms(torch, lambda: scan_grad_ref(
@@ -2364,17 +2537,18 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
                     *ops, return_state=True), 20),
                 "bound_ms": bms, "bound_by": by, "mufu_ms": mufu_ms,
                 "fp32_ops_ms": ops_n / FP32_OPS_PER_S * 1e3}
-            print(f"    kernel {r_['ms']:.4f} ms, plain {r_['plain_ms']:.2f} ms, "
-                  f"autograd of the plain forward {r_['autograd_plain_ms']:.2f} "
-                  f"ms, bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB; "
-                  f"{ops_n / 1e9:.2f} G fp32 operations take "
-                  f"{r_['fp32_ops_ms']:.4f} ms): {100 * bms / r_['ms']:.1f} % "
-                  f"of the bound; one exponential an element takes "
-                  f"{mufu_ms:.4f} ms on the special-function units; the "
-                  f"forward [tma] with checkpoints {r_['forward_ckpt_ms']:.4f} "
-                  f"ms, without (serve) {r_['forward_serve_ms']:.4f} ms",
-                  flush=True)
-        del ops, xz, bc, dtv, a, dy, ds, hck, got, want, again, hck_s
+            print(f"    kernel [tma] {r_['ms']:.4f} ms, sweep {r_['sweep_ms']:.4f} "
+                  f"ms (CUDA graphs, interleaved sweep, tma, tma, sweep), plain "
+                  f"{r_['plain_ms']:.2f} ms, autograd of the plain forward "
+                  f"{r_['autograd_plain_ms']:.2f} ms, bound {bms:.4f} ms ({by}: "
+                  f"{nbytes / 1e6:.1f} MB; {ops_n / 1e9:.2f} G fp32 operations "
+                  f"take {r_['fp32_ops_ms']:.4f} ms): {100 * bms / r_['ms']:.1f} "
+                  f"% of the bound; one exponential an element takes "
+                  f"{mufu_ms:.4f} ms on the special-function units (tma takes "
+                  f"1.5, sweep 2); the forward [tma] with checkpoints "
+                  f"{r_['forward_ckpt_ms']:.4f} ms, without (serve) "
+                  f"{r_['forward_serve_ms']:.4f} ms", flush=True)
+        del ops, xz, bc, dtv, a, dy, ds, hck, got, want, again, hck_s, sweep
         torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"recurrent backward phase: {rec['phase_s']:.1f} s", flush=True)
@@ -2655,7 +2829,8 @@ def train_phase(torch, np, dev, seed):
             f"rwkv6-1.6b config changed: {rcfg}")
     out_rec["rwkv6-1.6b"] = train_recurrent(
         torch, np, dev, seed, rcfg, RWKV_TRAIN_STEPS, RWKV_TRAIN_DROP,
-        {"rwkv6": 2 * rcfg.n_layers, "rwkv6_bwd": rcfg.n_layers}, "wkv")
+        {"rwkv6": 2 * rcfg.n_layers, "rwkv6_bwd": rcfg.n_layers}, "wkv",
+        {"rwkv6_bwd": "chunked"})
     full = get_config("jamba-v0.1-52b")
     jcfg = dataclasses.replace(full, n_layers=JAMBA_TRAIN_LAYERS)
     require(not any(jb.is_attn_layer(jcfg, l) for l in range(jcfg.n_layers))
@@ -2666,7 +2841,8 @@ def train_phase(torch, np, dev, seed):
     out_rec["jamba-v0.1-52b"] = train_recurrent(
         torch, np, dev, seed, jcfg, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_DROP,
         {"selective_scan": 2 * jcfg.n_layers,
-         "selective_scan_bwd": jcfg.n_layers}, "scan")
+         "selective_scan_bwd": jcfg.n_layers}, "scan",
+        {"selective_scan": "tma", "selective_scan_bwd": "tma"})
     for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
         out_rec[arch]["fp32_cut"] = recurrent_fp32_step(torch, np, dev, arch)
     out = {"llama": llama, "resume": resume, "cut": cut_rec, "whisper": whisper,
@@ -2675,17 +2851,23 @@ def train_phase(torch, np, dev, seed):
     return out
 
 
-def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel):
+def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel,
+                    instances):
     """Train ``cfg`` at full width on one repeated TRAIN_BATCH x TRAIN_SEQ
     batch for ``steps`` steps through ``launch.train.train_loop``, in its
     ``ARCH_TRAIN_OVERRIDES`` microbatches: launches exactly ``per_mb`` a
-    microbatch of every step (nothing else, no plain version), a finite and
+    microbatch of every step (nothing else, no plain version), every launch
+    of a wrapper in ``instances`` on the instance it names, a finite and
     falling loss (by ``drop``); one more step under the profiler.  Returns
     the record of the report."""
     import dataclasses
 
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (
+        instance_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
     from repro_torch.kernels import rwkv6 as wk
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch.train import train_loop
@@ -2714,6 +2896,7 @@ def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel):
         data=RepeatedBatch(tokens), history=history)
     torch.cuda.synchronize()
     counts = launch_counts()
+    by_instance = {name: instance_counts()[name] for name in instances}
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in params.parameters())
     want = {k: v * mb * steps for k, v in per_mb.items()}
@@ -2723,6 +2906,11 @@ def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel):
             f"microbatch: {per_mb}, the forward twice under remat)")
     require([f.calls for f in plains] == plain0,
             f"{cfg.name} train: a plain recurrence ran on the card")
+    require(all(by_instance[name][inst] == counts[name]
+                for name, inst in instances.items()),
+            f"{cfg.name} train: instances {by_instance}, want every launch on "
+            f"{instances}")
+    print(f"  instances over the {steps} steps: {by_instance}", flush=True)
     require(all(np.isfinite([h["loss"], h["gnorm"]]).all() for h in history),
             f"{cfg.name} train: a non-finite loss or gradient norm")
     fell = losses[0] - losses[-1]
@@ -2748,7 +2936,7 @@ def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel):
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
             "losses": losses, "n_params": n_params, "launches": counts,
-            "microbatches": mb}
+            "instances": by_instance, "microbatches": mb}
 
 
 def recurrent_fp32_step(torch, np, dev, arch):
@@ -3952,12 +4140,14 @@ def main(argv=None):
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"], "rel_frob": r["rel_frob"],
             "autograd_plain_ms": r["autograd_plain_ms"],
+            "instance": r["instance"], "sweep_ms": r["sweep_ms"],
+            "train_instances": t_rec["instances"][name],
             "path": f"{arch} training ({t_rec['microbatches']} microbatches a "
                     f"step, {len(t_rec['losses'])} steps; forward launches "
                     f"{t_rec['launches'][fwd]})"})
-        kernels[-1].update({k: r[k] for k in ("forward_ms", "forward_ckpt_ms",
-                                               "forward_serve_ms", "mufu_ms")
-                            if k in r})
+        kernels[-1].update({k: r[k] for k in (
+            "forward_ms", "forward_ckpt_ms", "forward_serve_ms", "mufu_ms")
+            if k in r})
     llama_train = train_rec["llama"]
     print(json.dumps({"train": {
         "llama3.2-1b": {k: llama_train[k] for k in (

@@ -24,7 +24,8 @@ wrappers' launch counters, so a run can show which kernels it went through;
 picked (``modmatmul*``: ``tensor_core``, ``skinny`` or ``cuda_core``;
 ``flash_attention``: ``wgmma``, ``mma_sync`` or ``cuda_core``;
 ``flash_attention_bwd``: ``wgmma``, ``mma_sync`` or ``cuda_core``;
-``selective_scan``: ``tma`` or ``simple``).  The counters
+``rwkv6_bwd``: ``chunked`` or ``sweep``; ``selective_scan``: ``tma`` or
+``simple``; ``selective_scan_bwd``: ``tma`` or ``sweep``).  The counters
 also zero ``flash_attention.lse_launches``, the forward launches that
 wrote the log-sum-exp for a backward (0 on the serve path).
 """

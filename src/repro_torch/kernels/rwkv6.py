@@ -37,20 +37,31 @@ Training.  When autograd records (grad enabled and an operand that
 requires grad), :func:`rwkv6` runs through :class:`WKV6` on either
 device: the forward as above, and the backward :func:`rwkv6_bwd`, the
 hand-written kernels of ``csrc/rwkv6_bwd.cu`` on the card (launches in
-``rwkv6_bwd.launches``), which replace the XLA autodiff of the
-reference's ``rwkv6_chunked``; on the CPU its plain version
-:func:`rwkv6_bwd_plain` (calls in ``rwkv6_bwd_plain.calls``).  Both run a
-forward sweep that recomputes S and gives dr, then reverse sweeps of
-``G_t = dL/dS_t`` that give dk, dv, dw (from ``G_t`` and ``S_{t-1}``) and
-the start state's gradient; the kernel keeps S every ``BWD_TILE`` steps
-and recomputes each tile's states from there (the source states the math
-and the design).  :func:`grad_agreement` holds the backward kernel against
-autograd of :func:`rwkv6_plain`.
+``rwkv6_bwd.launches`` and ``.instances``), which replace the XLA
+autodiff of the reference's ``rwkv6_chunked``; on the CPU its plain
+version :func:`rwkv6_bwd_plain` (calls in ``rwkv6_bwd_plain.calls``).
+:func:`choose_bwd_instance` picks one of two instances by dtype:
+
+* ``chunked`` (bf16, the training path): the chunked form on tensor cores.
+  S at every ``CHUNK`` steps' start and G at their end by the chunk
+  recurrences, then per chunk the same recurrences over ``SUB_CHUNK``
+  steps, the gradients' state terms as TF32 ``wgmma`` products and the
+  pairs inside a sub-chunk with exact gates on CUDA cores; its plain
+  version is :func:`rwkv6_bwd_chunked_plain`;
+* ``sweep`` (fp32, held to fp32's 1e-5): a forward sweep that recomputes S
+  and gives dr, then reverse sweeps of ``G_t = dL/dS_t`` that give dk,
+  dv, dw (from ``G_t`` and ``S_{t-1}``) and the start state's gradient;
+  the kernel keeps S every ``BWD_TILE`` steps and recomputes each tile's
+  states from there; its plain version is :func:`rwkv6_bwd_plain`.
+
+The source states the math and the design of both.  :func:`grad_agreement`
+holds the backward kernels against autograd of :func:`rwkv6_plain`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -264,6 +275,10 @@ GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
 # forward sweep keeps the state at the start of each, from which the reverse
 # sweep recomputes the tile's states for dw
 BWD_TILE = 16
+# the chunked instance's steps per chunk (its sequential sweeps step over
+# chunks) and per sub-chunk (its exact pairwise gates stay inside one)
+CHUNK = 64
+SUB_CHUNK = 16
 
 
 def grad_agreement(got, ref) -> dict:
@@ -328,14 +343,198 @@ def rwkv6_bwd_plain(r, k, v, w, u, dout, *, state0=None, dstate=None):
 rwkv6_bwd_plain.calls = 0
 
 
+def _chunks(x: torch.Tensor, n: int, pad: int) -> torch.Tensor:
+    """``[B, T, H, D]`` as ``[B, H, n, CHUNK, D]``, zero past T."""
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    return x.reshape(x.shape[0], n, CHUNK, x.shape[2], x.shape[3]).permute(
+        0, 3, 1, 2, 4)
+
+
+def _exclusive(x: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
+    """Running sums along dim -2 that leave out the step itself: the sum
+    over earlier steps, or with ``reverse`` over later ones."""
+    if reverse:
+        return _exclusive(x.flip(-2)).flip(-2)
+    return torch.cat([torch.zeros_like(x[..., :1, :]),
+                      x[..., :-1, :].cumsum(-2)], dim=-2)
+
+
+# pairs (s, s2), s < s2, of a sub-chunk's steps: for each i, those with
+# s < i < s2 (the dw terms that straddle step i)
+_STRADDLE = torch.tensor([[[s < i < s2 for s in range(SUB_CHUNK)]
+                           for s2 in range(SUB_CHUNK)]
+                          for i in range(SUB_CHUNK)])
+
+
+def _chunk_scan(tot, x, init, *, reverse=False):
+    """Walk the chunks (dim 2) of ``state_next = diag(e^tot_c) state + x_c``
+    from ``init``, forward or in ``reverse``: the state at each chunk's
+    start (forward) or end (reverse), and the state after the walk."""
+    n = x.shape[2]
+    states = [None] * n
+    s = init
+    for c in (reversed(range(n)) if reverse else range(n)):
+        states[c] = s
+        s = torch.exp(tot[:, :, c])[..., None] * s + x[:, :, c]
+    return states, s
+
+
+def _gate_sums(lq):
+    """The sums of log-decay over a sub-chunk's steps before and after each
+    step (dim -2), each leaving the step out."""
+    return _exclusive(lq), _exclusive(lq, reverse=True)
+
+
+def rwkv6_bwd_chunked_plain(r, k, v, w, u, dout, *, state0=None, dstate=None):
+    """The plain version of the ``chunked`` backward instance, on any
+    device: the arithmetic of ``csrc/rwkv6_bwd.cu``'s chunked kernels in
+    plain torch (float64 operands stay float64, the rest run in fp32, the
+    bonus terms and du in fp64), for the tests and ``chip_smoke.py``.
+
+    With log-decay λ_t = -exp(w_t), per (batch, head):
+
+    1. S at the start of every ``CHUNK`` steps, forward over chunks:
+       ``S_{c+1} = diag(e^{Σλ}) S_c + (k ∘ e^{λ after s})ᵀ v``;
+    2. G (= dL/dS) at the end of every chunk, backward over chunks:
+       ``G_{c-1} = diag(e^{Σλ}) G_c + (r ∘ e^{λ before j})ᵀ dout``
+       (``dstate0`` is G before chunk 0);
+    3. per chunk, S at the start and G at the end of each ``SUB_CHUNK``
+       steps by the same two recurrences, then per sub-chunk q, with
+       ``pex``/``X`` the sums of λ over its steps before/after a step:
+       ``dr = e^{pex} ∘ (dout S_qᵀ) + Σ_{s<i} A_is γ k_s + u k (v·dout)``,
+       ``dk = e^{X} ∘ (v G_qᵀ) + Σ_{s>i} A_si γ r_s + u r (v·dout)``,
+       ``dv = (k e^{X}) G_q + Σ_{s>i} P_si dout_s + a_i dout_i``, where
+       ``A = dout vᵀ`` and ``γ(s2, s) = e^{Σ λ strictly between}`` is the
+       exact pairwise gate inside the sub-chunk, ``P_{s2 s} = Σ_k r k γ``;
+       and ``d_i rowsum(G_i ∘ S_{i-1})`` as ``e^{Σλ} rowsum(S_q ∘ G_q)``
+       plus the suffix sum of ``r ∘ dr``'s state term, the prefix sum of
+       ``k ∘ dk``'s, and the pairs ``s < i < s2`` of the sub-chunk (each
+       gated by the decays strictly between s and s2: nothing is divided
+       by a decay and no sum runs past the sub-chunk); ``dw = λ ∘ that``.
+
+    Every gate is e to a sum of λ ≤ 0 over the steps it spans, so no
+    exponential overflows at any decay.  (The tests plant faults by
+    wrapping :func:`_chunk_scan` and :func:`_gate_sums`.)
+    """
+    rwkv6_bwd_chunked_plain.calls += 1
+    dtype = k.dtype
+    cd = torch.float64 if dtype == torch.float64 else torch.float32
+    b, t, h, dk_ = k.shape
+    dv_ = v.shape[-1]
+    dev = k.device
+    vd = torch.einsum("bthv,bthv->bth", v.double(), dout.double())
+    av = torch.einsum("bthk,hk,bthk->bth", r.double(), u.double(),
+                      k.double()).to(cd)
+    rf, kf, vf, wf, of = (x.to(cd) for x in (r, k, v, w, dout))
+    lam = -torch.exp(wf)
+    n = -(-t // CHUNK)
+    pad = n * CHUNK - t
+    rc, kc, vc, lc, oc = (_chunks(x, n, pad) for x in (rf, kf, vf, lam, of))
+    avc = _chunks(av[..., None], n, pad)[..., 0]
+    zeros = torch.zeros((b, h, dk_, dv_), dtype=cd, device=dev)
+    # 1, 2: the chunk states
+    tot = lc.sum(-2)                                          # [B,H,n,K]
+    kt = kc * torch.exp(_exclusive(lc, reverse=True))
+    rt = rc * torch.exp(_exclusive(lc))
+    starts, _ = _chunk_scan(tot, kt.transpose(-1, -2) @ vc,
+                            zeros if state0 is None else state0.to(cd))
+    ends, g = _chunk_scan(tot, rt.transpose(-1, -2) @ oc,
+                          zeros if dstate is None else dstate.to(cd),
+                          reverse=True)
+    ds0 = None if state0 is None else g
+    if n == 0:
+        z = torch.zeros((b, 0, h, dk_), dtype=dtype, device=dev)
+        return (z, z.clone(), torch.zeros_like(v), z.clone(),
+                torch.zeros_like(u), ds0)
+    # 3: per chunk (all at once), per sub-chunk
+    sq = [torch.stack(starts, 2)]                             # [B,H,n,K,V]
+    gq = [torch.stack(ends, 2)]
+    subs = []
+    for q in range(CHUNK // SUB_CHUNK):
+        sl = slice(q * SUB_CHUNK, (q + 1) * SUB_CHUNK)
+        lq = lc[..., sl, :]
+        pex, x = _gate_sums(lq)
+        subs.append({"sl": sl, "pex": pex, "pin": pex + lq, "x": x,
+                     "tot": torch.exp(lq.sum(-2))[..., None]})
+    for q, sub in enumerate(subs[:-1]):
+        sl = sub["sl"]
+        kb = kc[..., sl, :] * torch.exp(sub["x"])
+        sq.append(sub["tot"] * sq[q] + kb.transpose(-1, -2) @ vc[..., sl, :])
+    for q in reversed(range(1, len(subs))):
+        sub = subs[q]
+        sl = sub["sl"]
+        rb = rc[..., sl, :] * torch.exp(sub["pex"])
+        gq.insert(0, sub["tot"] * gq[0] + rb.transpose(-1, -2) @ oc[..., sl, :])
+    straddle = _STRADDLE.to(device=dev, dtype=cd)
+    dr, dk, dv, ddd = (torch.empty_like(kc) for _ in range(4))
+    for q, sub in enumerate(subs):
+        sl, pex, pin, x = sub["sl"], sub["pex"], sub["pin"], sub["x"]
+        rq, kq, vq, oq = (y[..., sl, :] for y in (rc, kc, vc, oc))
+        s_q, g_q = sq[q], gq[q]
+        dr_nd = torch.exp(pex) * (oq @ s_q.transpose(-1, -2))
+        dk_nd = torch.exp(x) * (vq @ g_q.transpose(-1, -2))
+        dv_nd = (kq * torch.exp(x)) @ g_q
+        a = oq @ vq.transpose(-1, -2)                         # [..., s2, s]
+        later = torch.ones(SUB_CHUNK, SUB_CHUNK, dtype=torch.bool,
+                           device=dev).tril(-1)               # s < s2
+        span = pex[..., :, None, :] - pin[..., None, :, :]    # [..., s2, s, K]
+        gam = torch.exp(torch.where(later[..., None], span,
+                                    torch.full_like(span, -torch.inf)))
+        dr_d = torch.einsum("...ts,...tsk,...sk->...tk", a, gam, kq)
+        dk_d = torch.einsum("...ts,...tsk,...tk->...sk", a, gam, rq)
+        p = torch.einsum("...tk,...sk,...tsk->...ts", rq, kq, gam)
+        dv_d = (torch.einsum("...ts,...tv->...sv", p, oq)
+                + avc[..., sl, None] * oq)
+        pairs = gam * rq[..., :, None, :] * kq[..., None, :, :] * a[..., None]
+        ddd[..., sl, :] = (
+            sub["tot"][..., 0][..., None, :] * (s_q * g_q).sum(-1)[..., None, :]
+            + _exclusive(rq * dr_nd, reverse=True)
+            + _exclusive(kq * dk_nd)
+            + torch.einsum("its,...tsk->...ik", straddle, pairs))
+        dr[..., sl, :] = dr_nd + dr_d
+        dk[..., sl, :] = dk_nd + dk_d
+        dv[..., sl, :] = dv_nd + dv_d
+
+    def unchunk(y):
+        return y.permute(0, 2, 3, 1, 4).reshape(b, n * CHUNK, h, -1)[:, :t]
+
+    dr, dk, dv, ddd = (unchunk(y) for y in (dr, dk, dv, ddd))
+    vd = vd[..., None]
+    dr = dr + (u.double() * k.double() * vd).to(cd)
+    dk = dk + (u.double() * r.double() * vd).to(cd)
+    dw = lam * ddd
+    du = torch.einsum("bthk,bthk,bth->hk", r.double(), k.double(), vd[..., 0])
+    return (dr.to(dtype), dk.to(dtype), dv.to(dtype), dw.to(dtype),
+            du.to(u.dtype), ds0)
+
+
+rwkv6_bwd_chunked_plain.calls = 0
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_lib():
+def _bwd_lib(instance: str):
     lib = _build.load("rwkv6_bwd")
-    fn = lib.rwkv6_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn = (lib.rwkv6_bwd_chunked_launch if instance == "chunked"
+          else lib.rwkv6_bwd_launch)
+    fn.argtypes = ([ctypes.c_void_p] * (21 if instance == "chunked" else 18)
+                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# the backward's instances (both in csrc/rwkv6_bwd.cu)
+BWD_INSTANCES = ("chunked", "sweep")
+
+
+def choose_bwd_instance(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor) -> str:
+    """The backward kernel that serves these operands on the card:
+    ``"chunked"`` (chunks of ``CHUNK`` steps, the products on TF32 wgmma)
+    for bf16 operands, the training path; ``"sweep"`` (the sequential
+    recurrence on fp32 CUDA cores, held to the fp32 limits) for fp32.  A
+    pure function of the dtype, so the CPU tests can ask it."""
+    return "chunked" if k.dtype == torch.bfloat16 else "sweep"
 
 
 def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -348,8 +547,9 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     final state.  dr, dk, dv and dw come in the operands' dtype, du in
     u's; ``dstate0`` (fp32) is None when ``state0`` is.
 
-    On the card (K = V = 64) the kernels of ``csrc/rwkv6_bwd.cu`` run in
-    one launch, counted in ``rwkv6_bwd.launches``; a CPU tensor takes
+    On the card (K = V = 64) :func:`choose_bwd_instance` picks ``chunked``
+    or ``sweep``, the kernels of ``csrc/rwkv6_bwd.cu`` in one launch,
+    counted in ``rwkv6_bwd.launches`` and ``.instances``; a CPU tensor takes
     :func:`rwkv6_bwd_plain`.  Nothing falls back.
     """
     _check(r, k, v, w, u, state0)
@@ -369,7 +569,25 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dstate=dstate)
     if k.device.type != "cuda":
         raise ValueError(f"rwkv6_bwd runs on cpu or cuda, not {k.device}")
+    instance = choose_bwd_instance(r, k, v, w)
+    grads = _bwd_launch(r, k, v, w, u, dout, state0=state0, dstate=dstate,
+                        instance=instance)
+    _build.count(rwkv6_bwd, instance)
+    return grads
+
+
+def _bwd_launch(r, k, v, w, u, dout, *, state0=None, dstate=None,
+                instance: str):
+    """Launch one backward instance on checked CUDA operands, uncounted:
+    the wrapper's path after :func:`choose_bwd_instance`, and the way to
+    time or check an instance the chooser would not pick (``chunked`` on
+    fp32 operands: its TF32 products miss the fp32 limits)."""
+    if instance not in BWD_INSTANCES:
+        raise ValueError(f"unknown rwkv6_bwd instance {instance!r}; known: "
+                         f"{BWD_INSTANCES}")
     _check_kernel(r, k, v, w)
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
     dev, dtype = k.device, k.dtype
     uf = u.float().contiguous()
     do = dout.float().contiguous()
@@ -380,13 +598,26 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du = torch.empty((h, dk), dtype=torch.float32, device=dev)
     ds0 = (None if state0 is None else
            torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev))
-    # scratch: S at the start of every BWD_TILE steps (the forward sweep's,
-    # from which the reverse sweep recomputes each tile's states), du's
-    # partial sums per (batch, head), and v_t . dout_t and the bonus scalar
-    # per (batch, step, head)
-    ck = torch.empty((b, -(-t // BWD_TILE), h, dk, dv), dtype=torch.float32,
-                     device=dev)
-    du_part = torch.empty((b, h, dk), dtype=torch.float64, device=dev)
+    # scratch.  sweep: S at the start of every BWD_TILE steps (the forward
+    # sweep's, from which the reverse sweep recomputes each tile's states)
+    # and du's partial sums per (batch, head).  chunked: S at the start and
+    # G at the end of every CHUNK steps, each chunk's products and sums of
+    # log-decay (S role, G role), du's partial sums per (batch, chunk,
+    # head).  Both: v_t . dout_t and the bonus scalar per (batch, step,
+    # head)
+    if instance == "chunked":
+        nc = -(-t // CHUNK)
+        shapes = ((b, nc, h, dk, dv), (b, nc, h, dk, dv),
+                  (b, nc, 2, h, dk, dv), (b, nc, 2, h, dk))
+        flat = torch.empty(sum(math.prod(x) for x in shapes),
+                           dtype=torch.float32, device=dev)
+        scratch = [x.view(shape) for x, shape in zip(
+            flat.split([math.prod(x) for x in shapes]), shapes, strict=True)]
+        du_part = torch.empty((b, nc, h, dk), dtype=torch.float64, device=dev)
+    else:
+        scratch = [torch.empty((b, -(-t // BWD_TILE), h, dk, dv),
+                               dtype=torch.float32, device=dev)]
+        du_part = torch.empty((b, h, dk), dtype=torch.float64, device=dev)
     vd = torch.empty((b, t, h), dtype=torch.float64, device=dev)
     av = torch.empty((b, t, h), dtype=torch.float32, device=dev)
     strides = [st for x in (r, k, v, w) for st in x.stride()[:3]]
@@ -396,16 +627,16 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bwd_lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         w.data_ptr(), uf.data_ptr(), ptr(s0), do.data_ptr(),
-                         ptr(ds), dr.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
-                         dw.data_ptr(), du.data_ptr(), ptr(ds0),
-                         ck.data_ptr(), du_part.data_ptr(), vd.data_ptr(),
-                         av.data_ptr(),
-                         _DTYPES[dtype], b, t, h, dk, dv, *strides, stream)
-    _build.check(err, "rwkv6_bwd")
-    _build.count(rwkv6_bwd)
+        err = _bwd_lib(instance)(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            uf.data_ptr(), ptr(s0), do.data_ptr(), ptr(ds), dr.data_ptr(),
+            dkk.data_ptr(), dvv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ptr(ds0), *(x.data_ptr() for x in scratch), du_part.data_ptr(),
+            vd.data_ptr(), av.data_ptr(), _DTYPES[dtype], b, t, h, dk, dv,
+            *strides, stream)
+    _build.check(err, f"rwkv6_bwd ({instance})")
     return dr, dkk, dvv, dw, du.to(u.dtype), ds0
 
 
 rwkv6_bwd.launches = 0
+rwkv6_bwd.instances = dict.fromkeys(BWD_INSTANCES, 0)

@@ -43,12 +43,14 @@ counted as above) also writes h at the start of every ``CHECKPOINT``
 steps, ``[B, ceil(T / 32), Di, N]`` fp32, and its backward is
 :func:`selective_scan_bwd`, the hand-written kernels of
 ``csrc/selective_scan_bwd.cu`` (launches in ``selective_scan_bwd
-.launches``), which re-run each 32-step stretch forward from its
-checkpoint and scan it in reverse; they replace the XLA autodiff of the
-reference's scan.  On the CPU the backward is
-:func:`selective_scan_bwd_plain` (calls in ``selective_scan_bwd_plain
-.calls``), a reverse scan in plain torch.  The serve path writes no
-checkpoint.
+.launches`` and ``.instances``), which re-run each 32-step stretch
+forward from its checkpoint and scan it in reverse; they replace the XLA
+autodiff of the reference's scan.  :func:`choose_bwd_instance` picks
+``tma`` (bf16 operands a TMA map takes: the training path; operands by a
+TMA ring, e_t kept from the re-run) or ``sweep`` (the rest).  On the CPU
+the backward is :func:`selective_scan_bwd_plain` (calls in
+``selective_scan_bwd_plain.calls``), a reverse scan in plain torch.  The
+serve path writes no checkpoint.
 
 :func:`agreement` is :func:`~repro_torch.kernels.rwkv6.agreement`: the
 kernel and the plain version run in fp32 from the same inputs and differ
@@ -68,7 +70,8 @@ from ..mpc.errors import ShapeContractError
 from . import _build
 from .rwkv6 import agreement
 
-__all__ = ["agreement", "choose_instance", "grad_agreement", "selective_scan",
+__all__ = ["agreement", "choose_bwd_instance", "choose_instance",
+           "grad_agreement", "selective_scan",
            "selective_scan_bwd", "selective_scan_bwd_plain",
            "selective_scan_plain", "SelectiveScan", "STATES"]
 
@@ -344,6 +347,12 @@ def _states(u, dt, a, b_t, c_t, chunk):
     return torch.cat(hs, dim=1), e
 
 
+def _next_decay(e):
+    """``e_{t+1}`` at every t (1 past the last step): the decay that G's
+    chain takes from step t + 1 back to t."""
+    return torch.cat([e[:, 1:], torch.ones_like(e[:, :1])], dim=1)
+
+
 def selective_scan_bwd_plain(u, dt, a, b_t, c_t, dy, *, dstate=None,
                              chunk: int = CHUNK):
     """The plain version of :func:`selective_scan_bwd` on any device, in
@@ -364,8 +373,7 @@ def selective_scan_bwd_plain(u, dt, a, b_t, c_t, dy, *, dstate=None,
     g_in = cf[:, :, None, :] * dy[..., None]                 # c_t dy_t
     if dstate is not None:
         g_in[:, -1] += dstate.float()
-    e_next = torch.cat([e[:, 1:], torch.ones_like(e[:, :1])], dim=1)
-    _, g = _inclusive_scan(e_next.flip(1), g_in.flip(1))
+    _, g = _inclusive_scan(_next_decay(e).flip(1), g_in.flip(1))
     g = g.flip(1)                                             # G_t
     eh = e * h_prev
     du = dtf * torch.einsum("btdn,btn->btd", g, bf)
@@ -385,10 +393,31 @@ selective_scan_bwd_plain.calls = 0
 def _bwd_lib():
     lib = _build.load("selective_scan_bwd")
     fn = lib.selective_scan_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# the backward's instances, as its C launcher numbers them
+_BWD_INSTANCE_IDS = {"tma": 1, "sweep": 0}
+BWD_INSTANCES = tuple(_BWD_INSTANCE_IDS)
+
+
+def choose_bwd_instance(u: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
+                        c_t: torch.Tensor) -> str:
+    """The backward kernel that serves these operands on the card:
+    ``"tma"`` (a TMA ring in, e_t kept from the re-run) for bf16 operands
+    where :func:`choose_instance` would take the forward's ``tma`` instance
+    and the fp32 ``dy`` rows (Di elements) are whole 16-byte units (the
+    training path), else ``"sweep"``: fp32 operands double the ring, so
+    the ``tma`` instance fits one block an SM and ran slower than
+    ``sweep`` there on an H100 (``PERF.md``).  A pure function of dtype,
+    shapes, strides and pointers, so the CPU tests can ask it."""
+    if (u.dtype != torch.bfloat16 or u.shape[-1] % 4
+            or choose_instance(u, dt, b_t, c_t) != "tma"):
+        return "sweep"
+    return "tma"
 
 
 def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -400,11 +429,11 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     each in its operand's shape and dtype.
 
     On the card (N in ``STATES``) ``checkpoints`` must be the forward
-    launch's ``[B, ceil(T / 32), Di, N]`` states; the kernels of
-    ``csrc/selective_scan_bwd.cu`` run in one launch, counted in
-    ``selective_scan_bwd.launches``.  A CPU tensor takes
-    :func:`selective_scan_bwd_plain` (``chunk`` is its forward's window).
-    Nothing falls back.
+    launch's ``[B, ceil(T / 32), Di, N]`` states; :func:`choose_bwd_instance`
+    picks ``tma`` or ``sweep`` (``csrc/selective_scan_bwd.cu``), one launch
+    counted in ``selective_scan_bwd.launches`` and ``.instances``.  A CPU
+    tensor takes :func:`selective_scan_bwd_plain` (``chunk`` is its
+    forward's window).  Nothing falls back.
     """
     _check(u, dt, a, b_t, c_t)
     bsz, t, di = u.shape
@@ -423,7 +452,24 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan_bwd runs on cpu or cuda, not "
                          f"{u.device}")
+    instance = choose_bwd_instance(u, dt, b_t, c_t)
+    grads = _bwd_launch(u, dt, a, b_t, c_t, dy, dstate=dstate,
+                        checkpoints=checkpoints, instance=instance)
+    _build.count(selective_scan_bwd, instance)
+    return grads
+
+
+def _bwd_launch(u, dt, a, b_t, c_t, dy, *, dstate=None, checkpoints=None,
+                instance: str):
+    """Launch one backward instance on checked CUDA operands, uncounted:
+    the wrapper's path after :func:`choose_bwd_instance`, and the way to
+    time or check an instance the chooser would not pick."""
+    if instance not in BWD_INSTANCES:
+        raise ValueError(f"unknown selective_scan_bwd instance {instance!r}; "
+                         f"known: {BWD_INSTANCES}")
     _check_kernel(u, dt, a, b_t, c_t)
+    bsz, t, di = u.shape
+    n = a.shape[1]
     want = (bsz, -(-t // CHECKPOINT), di, n)
     if (checkpoints is None or tuple(checkpoints.shape) != want
             or checkpoints.dtype != torch.float32
@@ -432,13 +478,15 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"selective_scan_bwd needs the forward's fp32 checkpoints {want}",
             shapes=(None if checkpoints is None else checkpoints.shape,))
     dev, dtype = u.device, u.dtype
-    nblk = -(-di // 32)
+    # blocks of channels (the db and dc partials): 32 channels a block
+    # (sweep) or 512 / N (tma)
+    nblk = -(-di // (32 if instance == "sweep" else 512 // n))
     du, ddt = (torch.empty((bsz, t, di), dtype=dtype, device=dev)
                for _ in range(2))
     db, dc = (torch.empty((bsz, t, n), dtype=dtype, device=dev)
               for _ in range(2))
     da = torch.empty((di, n), dtype=torch.float32, device=dev)
-    # scratch: da per batch row, db and dc per block of 32 channels
+    # scratch: da per batch row, db and dc per block of channels
     da_part = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
     db_part, dc_part = (torch.empty((bsz, nblk, t, n), dtype=torch.float32,
                                     device=dev) for _ in range(2))
@@ -454,10 +502,11 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          du.data_ptr(), ddt.data_ptr(), da.data_ptr(),
                          db.data_ptr(), dc.data_ptr(), da_part.data_ptr(),
                          db_part.data_ptr(), dc_part.data_ptr(),
-                         _DTYPES[dtype], bsz, t, di, n, *strides, stream)
-    _build.check(err, "selective_scan_bwd")
-    _build.count(selective_scan_bwd)
+                         _BWD_INSTANCE_IDS[instance], _DTYPES[dtype], bsz, t,
+                         di, n, *strides, stream)
+    _build.check(err, f"selective_scan_bwd ({instance})")
     return du, ddt, da, db, dc
 
 
 selective_scan_bwd.launches = 0
+selective_scan_bwd.instances = dict.fromkeys(BWD_INSTANCES, 0)

@@ -1305,8 +1305,12 @@ def _wkv_grad_ref(r, k, v, w, u, s0, dout, dstate):
 @pytest.mark.parametrize("case", RWKV_BWD_CASES, ids=str)
 def test_gpu_rwkv6_bwd_kernel_equals_autograd_of_plain(cuda, case):
     """dr, dk, dv, dw, du and dstate0 within ``rwkv6.grad_agreement`` of
-    autograd of the plain forward; one launch, no plain call; the same bits
-    twice; under autograd ``rwkv6`` runs the kernels both ways."""
+    autograd of the plain forward, from the routed instance (``chunked`` for
+    bf16, ``sweep`` for fp32) and, for bf16, from ``sweep`` too, the two
+    instances within the same limits of each other (for fp32, ``chunked``
+    within bf16's relative Frobenius limit); one launch, no plain
+    call; the same bits twice; under autograd ``rwkv6`` runs the kernels
+    both ways."""
     from repro_torch.kernels import rwkv6 as wk
 
     b, t, h, dtype, w_mean, states, strided = case
@@ -1316,11 +1320,14 @@ def test_gpu_rwkv6_bwd_kernel_equals_autograd_of_plain(cuda, case):
     s0, ds = ((torch.randn((b, h, 64, 64), generator=g, device=cuda)
                for _ in range(2)) if states else (None, None))
     dout = torch.randn((b, t, h, 64), generator=g, device=cuda)
+    routed = wk.choose_bwd_instance(r, k, v, w)
+    assert routed == ("chunked" if dtype == torch.bfloat16 else "sweep")
     reset_launch_counts()
     plain0 = wk.rwkv6_bwd_plain.calls
     got = wk.rwkv6_bwd(r, k, v, w, u, dout, state0=s0, dstate=ds)
     torch.cuda.synchronize()
     assert launch_counts()["rwkv6_bwd"] == 1 and wk.rwkv6_bwd_plain.calls == plain0
+    assert instance_counts()["rwkv6_bwd"][routed] == 1
     assert all(x.dtype == dtype for x in got[:4]) and got[4].dtype == u.dtype
     assert (got[5] is None) == (s0 is None)
     want = _wkv_grad_ref(r, k, v, w, u, s0, dout, ds)
@@ -1329,6 +1336,18 @@ def test_gpu_rwkv6_bwd_kernel_equals_autograd_of_plain(cuda, case):
     again = wk.rwkv6_bwd(r, k, v, w, u, dout, state0=s0, dstate=ds)
     assert all(x is None or torch.equal(x, y) for x, y in zip(got, again,
                                                               strict=True))
+    if routed == "chunked":
+        sweep = wk._bwd_launch(r, k, v, w, u, dout, state0=s0, dstate=ds,
+                               instance="sweep")
+        assert wk.grad_agreement(sweep, want)["ok"]
+        assert wk.grad_agreement(got, sweep)["ok"]
+    else:
+        # chunked on fp32 operands (never routed: its TF32 products miss
+        # fp32's 1e-5) still lies within bf16's 2^-7 in relative Frobenius
+        tf32 = wk.grad_agreement(wk._bwd_launch(
+            r, k, v, w, u, dout, state0=s0, dstate=ds, instance="chunked"), want)
+        assert all(tf32[n]["rel_frob"] <= 2.0 ** -7 for n in wk.GRAD_NAMES
+                   if n in tf32), tf32
     ops = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
     reset_launch_counts()
     out, state = rwkv6(*ops, state0=s0)
@@ -1339,7 +1358,7 @@ def test_gpu_rwkv6_bwd_kernel_equals_autograd_of_plain(cuda, case):
 
 
 @pytest.mark.gpu
-def test_gpu_rwkv6_bwd_check_rejects_planted_faults(cuda):
+def test_gpu_rwkv6_bwd_check_rejects_planted_faults(cuda, monkeypatch):
     """The kernel passes; dw's sign flipped on the last tile, du with one
     head dropped and the reverse sweep starting one step late fail the
     same check."""
@@ -1363,6 +1382,22 @@ def test_gpu_rwkv6_bwd_check_rejects_planted_faults(cuda):
               "du with one head dropped": got[:4] + (du, None),
               "the reverse sweep one step late": (got[0],) + dr_late[1:4]
               + got[4:]}
+    # the chunked instance's arithmetic with a fault planted (its plain
+    # version): each chunk handed the start state of the chunk before it,
+    # and the sums of log-decay before and after each step of a sub-chunk
+    # swapped (every gate referenced to the sub-chunk's wrong end)
+    assert wk.grad_agreement(wk.rwkv6_bwd_chunked_plain(*ops, dout), want)["ok"]
+    scan, sums = wk._chunk_scan, wk._gate_sums
+
+    def shifted(tot, x, init, *, reverse=False):
+        states, last = scan(tot, x, init, reverse=reverse)
+        return (states if reverse else states[:1] + states[:-1]), last
+
+    for fault, name, fn in (("chunk_state", "_chunk_scan", shifted),
+                            ("gate", "_gate_sums", lambda lq: sums(lq)[::-1])):
+        with monkeypatch.context() as m:
+            m.setattr(wk, name, fn)
+            faults[fault] = wk.rwkv6_bwd_chunked_plain(*ops, dout)
     for name, bad in faults.items():
         assert not wk.grad_agreement(bad, want)["ok"], name
 
@@ -1406,6 +1441,8 @@ def test_gpu_selective_scan_bwd_kernel_equals_autograd_of_plain(cuda, case):
     dy = torch.randn((b, t, di), generator=g, device=cuda)
     ds = torch.randn((b, di, n), generator=g, device=cuda) if with_ds else None
     want = _scan_grad_ref(*ops, dy, ds)
+    routed = ss.choose_bwd_instance(ops[0], ops[1], ops[3], ops[4])
+    assert routed == ("tma" if dtype == torch.bfloat16 else "sweep")
     for instance in ss.INSTANCES:
         y, _, hck = ss._launch(*ops, instance=instance, return_state=True,
                                checkpoints=True)
@@ -1416,6 +1453,7 @@ def test_gpu_selective_scan_bwd_kernel_equals_autograd_of_plain(cuda, case):
         got = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
         torch.cuda.synchronize()
         assert launch_counts()["selective_scan_bwd"] == 1
+        assert instance_counts()["selective_scan_bwd"][routed] == 1
         assert ss.selective_scan_bwd_plain.calls == plain0
         assert [x.dtype for x in got] == [dtype, dtype, torch.float32, dtype,
                                           dtype]
@@ -1423,10 +1461,23 @@ def test_gpu_selective_scan_bwd_kernel_equals_autograd_of_plain(cuda, case):
         assert a["ok"], (instance, a)
         again = ss.selective_scan_bwd(*ops, dy, dstate=ds, checkpoints=hck)
         assert all(torch.equal(x, y) for x, y in zip(got, again, strict=True))
+        # each backward instance, the same bits twice, the two within the
+        # limits of each other
+        each = {}
+        for bwd in ss.BWD_INSTANCES:
+            each[bwd] = ss._bwd_launch(*ops, dy, dstate=ds, checkpoints=hck,
+                                       instance=bwd)
+            assert ss.grad_agreement(each[bwd], want)["ok"], (instance, bwd)
+            twice = ss._bwd_launch(*ops, dy, dstate=ds, checkpoints=hck,
+                                   instance=bwd)
+            assert all(torch.equal(x, y)
+                       for x, y in zip(each[bwd], twice, strict=True))
+        assert ss.grad_agreement(each["tma"], each["sweep"])["ok"]
 
 
 @pytest.mark.gpu
-def test_gpu_selective_scan_bwd_check_rejects_planted_faults(cuda):
+def test_gpu_selective_scan_bwd_check_rejects_planted_faults(cuda,
+                                                            monkeypatch):
     """The kernel passes; h_{t-1} read from the wrong tile (checkpoints one
     stretch off) and db without one block's partial fail the same check."""
     from repro_torch.kernels import selective_scan as ss
@@ -1446,8 +1497,12 @@ def test_gpu_selective_scan_bwd_check_rejects_planted_faults(cuda):
     first = ss.selective_scan_bwd_plain(u[..., :32], dt[..., :32], a[:32], b_t,
                                         c_t, dy[..., :32])
     db = (got[3].float() - first[3].float()).to(got[3].dtype)
+    # G's chain taking e_t in place of e_{t+1}: the kept decay one step off
+    monkeypatch.setattr(ss, "_next_decay", lambda e: e)
+    e_shift = ss.selective_scan_bwd_plain(*ops, dy)
     for name, bad in {"h_{t-1} from the wrong tile": wrong_tile,
-                      "db without one block": got[:3] + (db, got[4])}.items():
+                      "db without one block": got[:3] + (db, got[4]),
+                      "e_t one step off in G's chain": e_shift}.items():
         assert not ss.grad_agreement(bad, want)["ok"], name
 
 
@@ -1626,6 +1681,23 @@ def test_flash_bwd_chooser_takes_mma_sync_for_unaligned_bf16(d):
 def test_flash_bwd_chooser_takes_cuda_cores_for_fp32(d):
     x = _views(torch.float32, 1, 8, 4, d)
     assert fa.choose_bwd_instance(x, x, x) == "cuda_core"
+
+
+def test_selective_scan_bwd_chooser_routes_by_alignment():
+    from repro_torch.kernels.selective_scan import choose_bwd_instance
+
+    for dtype in (torch.float32, torch.bfloat16):
+        xz = torch.zeros((1, 50, 512), dtype=dtype)
+        u = xz[..., :256]                        # the model's view of in_proj
+        bc = torch.zeros((1, 50, 32), dtype=dtype)
+        b_t, c_t = bc.chunk(2, dim=-1)
+        want = "tma" if dtype == torch.bfloat16 else "sweep"
+        assert choose_bwd_instance(u, u, b_t, c_t) == want
+        off = torch.zeros(50 * 256 + 1, dtype=dtype)[1:].view(1, 50, 256)
+        assert choose_bwd_instance(off, u, b_t, c_t) == "sweep"
+        # dy [B, T, Di] in fp32: rows of whole 16-byte units only
+        odd = torch.zeros((1, 50, 72), dtype=dtype)[..., :70]
+        assert choose_bwd_instance(odd, odd, b_t, c_t) == "sweep"
 
 
 def test_selective_scan_chooser_routes_by_alignment():
