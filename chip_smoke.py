@@ -11,8 +11,12 @@
    and any "Potential Performance Loss" ptxas reports (serialized wgmma).
 3. Holds every mod-p kernel against its plain version on the card
    (``torch.equal``) for both primes, at the main path's shapes, ragged
-   shapes and the all-(p-1) corner (K = 3000, and K = 20000 past the
-   tensor-core instance's s32 run), and times both with CUDA events.
+   shapes and the all-(p-1) corner at the edges the overflow proof
+   certifies (``repro_torch.analysis.overflow``): K = 2
+   ``certified_window(p)`` + 1 for the uint64 accumulators (``cuda_core``
+   with one block a tile and with K split, ``skinny``, ``polyeval``) and K
+   = 2 ``certified_k_run()`` + 1 for the tensor-core instance's s32 runs,
+   each equal to the closed form; and times both with CUDA events.
    ``modmatmul_batched`` has two instances (``choose_instance``): the
    tensor-core one serves the main shape, and the CUDA-core one is held
    and timed beside it in the same run through the module's private
@@ -22,7 +26,8 @@
    main-path block in the forms the stages pass (encode twice; the exchange
    as two sources stacked; decode through a device index of survivor
    rows), each beside its bytes bound, and held on ragged shapes, odd C,
-   rows that are not 16-byte aligned and the all-(p-1) corner at K = 19.
+   rows that are not 16-byte aligned and the all-(p-1) corner at the
+   window's edge.
    The remote path's own shapes are held and timed too: a worker's W = 1
    product ``[1,1024,1024]^2`` (the tensor-core instance, read from the
    instance counters), its G row ``[17,1] @ [1,2^20]`` and the dealer's
@@ -173,6 +178,13 @@
    ``[1,1500,12,64]`` (layer 0's real q, k, v) and the cross shape
    ``[1,64,12,64] x [1,1500,12,64]``, beside SDPA; prints times, peak
    memory and the device busy share.
+13b. The serve-CLI phase: ``repro_torch.launch.serve.main`` at full width
+   on the card for llama3.2-1b, rwkv6-1.6b and whisper-small, each twice
+   with ``--batch 4 --prompt-len 512 --max-new 16``: the same tokens both
+   times and from ``Engine.generate`` driven directly on the same seeds,
+   inside the vocab, ``flash_attention`` or ``rwkv6`` launched in each run;
+   tokens/s printed beside the card's name and power limit, and a
+   ``{"serve_cli": ...}`` line.
 14. The flash-backward phase: holds ``flash_attention_bwd`` (dq, dk and dv
    from q, k, v, o, dO and the forward kernel's own lse) against its plain
    version within ``flash_attention.grad_agreement``'s limits at llama3.2-1b's
@@ -242,6 +254,7 @@ Any failed check raises and the script exits non-zero.
 """
 import argparse
 import contextlib
+import io
 import json
 import os
 import re
@@ -299,6 +312,11 @@ JAMBA_CALLS = ((1, 2048, 16), (4, 512, 16))
 # the whisper phase: whisper-small, 1500 encoder frames a request
 WHISPER_FRAMES = 1500
 WHISPER_CALLS = ((4, 4, 32), (2, 64, 32))
+# the serve-CLI phase: python -m repro_torch.launch.serve at full width, each
+# arch twice, and the kernel each run must launch
+SERVE_CLI_ARCHS = (("llama3.2-1b", "flash_attention"), ("rwkv6-1.6b", "rwkv6"),
+                   ("whisper-small", "flash_attention"))
+SERVE_CLI_BATCH, SERVE_CLI_PROMPT, SERVE_CLI_NEW = 4, 512, 16
 # torch's elementwise operators (aten names, in-place forms included): none
 # of them may run over the I-points of a main-path block
 ELEMENTWISE = {"add", "sub", "mul", "where", "remainder", "bitwise_and",
@@ -688,6 +706,7 @@ def skinny_checks(torch, dev, gen, sms):
         skinny_blocks,
         skinny_rows,
     )
+    from repro_torch.analysis.overflow import certified_window
     from repro_torch.mpc import P_DEFAULT, P_MERSENNE31
 
     col = 1024 * 1024
@@ -759,10 +778,12 @@ def skinny_checks(torch, dev, gen, sms):
              rand(p, 17, k), rand(p, k, 1), p)
         hold(f"modmatmul_batched ragged [3,17,{k}]@[3,{k},1]",
              modmatmul_batched, rand(p, 3, 17, k), rand(p, 3, k, 1), p)
-        full = torch.full((17, col), p - 1, dtype=torch.int64, device=dev)
-        hold(f"modmatmul all-(p-1) corner [17,{col}]@[{col},1]", modmatmul,
-             full, full[0].reshape(col, 1).contiguous(), p,
-             want=pow(p - 1, 2, p) * col % p)
+        k = 2 * certified_window(p) + 1        # the window certificate's edge
+        for kk in (k, col):
+            full = torch.full((17, kk), p - 1, dtype=torch.int64, device=dev)
+            hold(f"modmatmul all-(p-1) corner [17,{kk}]@[{kk},1]", modmatmul,
+                 full, full[0].reshape(kk, 1).contiguous(), p,
+                 want=pow(p - 1, 2, p) * kk % p)
         del full
         torch.cuda.empty_cache()
     return out
@@ -1550,6 +1571,77 @@ def scan_phase(torch, dev, gen, sms):
             del ops, u, dt, b_t, c_t, y, h, want_y, want_h
             torch.cuda.empty_cache()
     return rec
+
+
+def serve_cli_phase(torch, dev, card):
+    """``repro_torch.launch.serve.main`` on the card (its default device) at
+    full width, each of ``SERVE_CLI_ARCHS`` twice with ``--batch 4
+    --prompt-len 512 --max-new 16`` (whisper on the command line's 512
+    zero frames): the same tokens both times, inside the vocab, equal to
+    ``Engine.generate`` driven directly on the weights and prompt of the
+    same seeds; the model's kernel launched in every run (counters zeroed
+    just before it, read just after).  Prints each run's ``[serve]`` line
+    beside the card; returns per arch the runs' tokens/s, the direct
+    call's seconds and the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as cli
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Engine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    argv = ["--batch", str(SERVE_CLI_BATCH), "--prompt-len",
+            str(SERVE_CLI_PROMPT), "--max-new", str(SERVE_CLI_NEW)]
+    print(f"serve-CLI phase: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)} at full width, twice per arch ({card})",
+          flush=True)
+    out = {}
+    for arch, kernel in SERVE_CLI_ARCHS:
+        cfg = get_config(arch)
+        runs = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                toks = cli.main(["--arch", arch, *argv])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            line = buf.getvalue().strip()
+            print(f"  {arch} run {i + 1} ({card}): {line}; launches {counts}",
+                  flush=True)
+            rate = re.search(r"\(([0-9.]+) tok/s\)", line)
+            require(rate is not None, f"{arch}: no [serve] line: {line!r}")
+            require(counts.get(kernel, 0) > 0,
+                    f"{arch}: the CLI's run launched no {kernel} ({counts})")
+            require(toks.is_cuda and tuple(toks.shape)
+                    == (SERVE_CLI_BATCH, SERVE_CLI_NEW),
+                    f"{arch}: tokens {tuple(toks.shape)} on {toks.device}")
+            require(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab,
+                    f"{arch}: a token outside the vocab {cfg.vocab}")
+            runs.append((toks, float(rate.group(1)), counts))
+        require(torch.equal(runs[0][0], runs[1][0]),
+                f"{arch}: the CLI's two runs gave different tokens")
+        params, prompt, embeds = cli.inputs(cfg, SERVE_CLI_BATCH,
+                                            SERVE_CLI_PROMPT, dev)
+        t0 = time.perf_counter()
+        direct = Engine(cfg, params, device=dev).generate(
+            prompt, SERVE_CLI_NEW, embeds=embeds)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        require(torch.equal(direct, runs[0][0]),
+                f"{arch}: Engine.generate on the same seeds != the CLI's tokens")
+        print(f"  {arch}: the same tokens twice and from Engine.generate "
+              f"driven directly ({direct_s:.4f} s, "
+              f"{SERVE_CLI_BATCH * SERVE_CLI_NEW / direct_s:.1f} tok/s; {card})",
+              flush=True)
+        out[arch] = {"cli_tok_s": [r[1] for r in runs],
+                     "direct_s": direct_s, "launches": runs[0][2]}
+        del params, prompt, embeds, direct, runs
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"serve-CLI phase: {phase_s:.1f} s", flush=True)
+    return dict(out, phase_s=phase_s, card=card)
 
 
 def timed_prefill_decode(torch, model, cfg, params, tok, embeds=None, steps=8):
@@ -3310,6 +3402,10 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
+    from repro_torch.analysis.overflow import (
+        certified_k_run,
+        certified_window,
+    )
     from repro_torch.kernels import (
         _build,
         instance_counts,
@@ -3447,16 +3543,30 @@ def main(argv=None):
             compare(f"modmatmul_batched ragged [2,70,130]@[2,130,200] ({name})",
                     *instance(name), (rand(p, 2, 70, 130), rand(p, 2, 130, 200)),
                     p, iters=0)
-        compare("modmatmul_batched all-(p-1) corner, K=3000", *mmb,
-                (full(p, 4, 256, 3000), full(p, 4, 3000, 64)), p, iters=0,
-                want=pow(p - 1, 2, p) * 3000 % p)
-        compare("modmatmul_batched all-(p-1) corner, K=3000 (cuda_core)",
+        # the all-(p-1) corners at the overflow certificates' edges: K = 2
+        # windows + 1 for the uint64 accumulators (cuda_core, skinny,
+        # polyeval), K = 2 s32 runs + 1 for the tensor cores
+        k_win, k_run = 2 * certified_window(p) + 1, 2 * certified_k_run() + 1
+        compare(f"modmatmul_batched all-(p-1) corner, K=2*window+1={k_win} "
+                f"(chosen)", *mmb,
+                (full(p, 4, 256, k_win), full(p, 4, k_win, 64)), p, iters=0,
+                want=pow(p - 1, 2, p) * k_win % p)
+        require(mm_mod.k_splits(2, 768, k_win, 768, sms)[0] == 1,
+                "the cuda_core corner's shape splits K")
+        compare(f"modmatmul_batched all-(p-1) corner, K={k_win} (cuda_core, "
+                f"one block a tile: every accumulator folds at the window)",
                 *instance("cuda_core"),
-                (full(p, 4, 256, 3000), full(p, 4, 3000, 64)), p, iters=0,
-                want=pow(p - 1, 2, p) * 3000 % p)
-        compare("modmatmul_batched all-(p-1) corner, K=20000 (three s32 runs)",
-                *mmb, (full(p, 2, 64, 20000), full(p, 2, 20000, 64)), p,
-                iters=0, want=pow(p - 1, 2, p) * 20000 % p)
+                (full(p, 2, 768, k_win), full(p, 2, k_win, 768)), p, iters=0,
+                want=pow(p - 1, 2, p) * k_win % p)
+        compare(f"modmatmul_batched all-(p-1) corner, K={k_win} (cuda_core, "
+                f"k_splits {mm_mod.k_splits(4, 256, k_win, 64, sms)[0]})",
+                *instance("cuda_core"),
+                (full(p, 4, 256, k_win), full(p, 4, k_win, 64)), p, iters=0,
+                want=pow(p - 1, 2, p) * k_win % p)
+        compare(f"modmatmul_batched all-(p-1) corner, K=2*K_RUN_MAX+1={k_run} "
+                f"(tensor_core: three s32 runs)", *instance("tensor_core"),
+                (full(p, 2, 64, k_run), full(p, 2, k_run, 64)), p, iters=0,
+                want=pow(p - 1, 2, p) * k_run % p)
         compare("modmatmul ragged [33,70]@[70,45]", *mm1,
                 (rand(p, 33, 70), rand(p, 70, 45)), p, iters=0)
         pe = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "work": (0, 0),
@@ -3494,13 +3604,14 @@ def main(argv=None):
         compare("polyeval rows not 16-byte aligned: [17,19] @ views of one "
                 "[19,3001] tensor", *pev,
                 (rand(p, 17, 19), (shifted[:17], shifted[17:])), p, iters=0)
-        compare("polyeval all-(p-1) corner, exchange form, K=19", *pev,
-                (full(p, 17, 19), (full(p, 17, 4097), full(p, 2, 4097))), p,
-                iters=0, want=pow(p - 1, 2, p) * 19 % p)
-        compare("polyeval all-(p-1) corner, decode form, K=19", *pev,
-                (full(p, 4, 19), full(p, 25, 4096)), p, iters=0,
-                want=pow(p - 1, 2, p) * 19 % p,
-                rows=torch.arange(3, 22, device=dev))
+        compare(f"polyeval all-(p-1) corner, exchange form, K={k_win}", *pev,
+                (full(p, 17, k_win), (full(p, k_win - 2, 1001),
+                                      full(p, 2, 1001))), p,
+                iters=0, want=pow(p - 1, 2, p) * k_win % p)
+        compare(f"polyeval all-(p-1) corner, decode form, K={k_win}", *pev,
+                (full(p, 4, k_win), full(p, k_win + 6, 1024)), p, iters=0,
+                want=pow(p - 1, 2, p) * k_win % p,
+                rows=torch.arange(3, 3 + k_win, device=dev))
         del shifted
         # the remote path's own shapes (phase 6c): each worker's W = 1
         # product and its G row (K = 1), and the dealer's mask term (K = z,
@@ -3551,7 +3662,8 @@ def main(argv=None):
             compare(f"ring_fold {name} odd C [5,1001]", ring_fold,
                     ring_fold_plain, (rand(p, 5, 1001).to(dt),
                                       rand(p, 5, 1001).to(dt)), p, iters=0)
-            compare(f"ring_fold {name} all-(p-1) corner [5,4097]", ring_fold,
+            compare(f"ring_fold {name} all-(p-1) corner [5,4097] (a + b = "
+                    f"2(p-1), its uint32 certificate's edge)", ring_fold,
                     ring_fold_plain, (full(p, 5, 4097).to(dt),
                                       full(p, 5, 4097).to(dt)), p, iters=0,
                     want=p - 2)
@@ -3903,6 +4015,9 @@ def main(argv=None):
     jamba_rec = jamba_phase(torch, np, dev, args.seed, hold_flash)
     whisper_rec = whisper_phase(torch, np, dev, args.seed, hold_flash)
 
+    # ------------- the serving command line at full width (launch/serve.py)
+    serve_cli_rec = serve_cli_phase(torch, dev, card)
+
     # ----------- training: the flash backward kernel, then the train phase
     bwd_rec = flash_bwd_phase(torch, dev, gen)
     rbwd_rec = recurrent_bwd_phase(torch, dev, gen, sms)
@@ -4161,6 +4276,7 @@ def main(argv=None):
         "times", "peak_gib", "n_params", "phase_s")}, "whisper": {
         k: whisper_rec[k] for k in ("times", "peak_gib", "n_params",
                                     "phase_s")}}))
+    print(json.dumps({"serve_cli": serve_cli_rec}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -52,7 +52,9 @@ def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
+            # analysis: allow(host-sync): a checkpoint is written from the host
             return leaf.view(torch.int16).cpu().numpy().view(np.uint16)
+        # analysis: allow(host-sync): a checkpoint is written from the host
         return leaf.cpu().numpy()
     return np.asarray(leaf)  # analysis: allow(host-sync): host leaves only
 

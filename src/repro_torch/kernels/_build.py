@@ -25,6 +25,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..mpc.errors import InvariantError
 from ..mpc.field import acc_window
 from .barrett import barrett_params
 
@@ -127,15 +128,25 @@ def fold_args(p: int) -> tuple:
 
     Raises ``ValueError`` for a prime the kernels do not take: one that is
     not pseudo-Mersenne with at most 4 folds, or one whose elements do not
-    fit the kernels' 32-bit operand registers.
+    fit the kernels' 32-bit operand registers.  The window is the one the
+    overflow proof certifies (:func:`repro_torch.analysis.overflow.
+    certified_window`); ``InvariantError`` if ``acc_window`` disagrees.
     """
+    # lazy: the analysis package imports the field and the kernels' wrappers
+    from ..analysis.overflow import certified_window
+
     params = barrett_params(p)
     if p >= 2**31 or params is None or params[2] > 4:
         raise ValueError(
             f"the mod-p kernels take pseudo-Mersenne primes p < 2^31 with at "
             f"most 4 folds; p={p} has fold parameters {params}")
     b, c, n_folds = params
-    return p, b, c, n_folds, min(acc_window(p), 2**30)
+    window = certified_window(p)
+    if acc_window(p) != window:
+        raise InvariantError(
+            f"acc_window({p}) = {acc_window(p)} but the overflow proof "
+            f"certifies {window}: the kernels' fold cadence has drifted")
+    return p, b, c, n_folds, min(window, 2**30)
 
 
 def count(fn, instance: str = None) -> None:

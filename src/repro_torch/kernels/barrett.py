@@ -105,6 +105,22 @@ def matmul_limbs(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
                  p)
 
 
+def check_window(p: int, window: int) -> None:
+    """Refuse a fold window past the certificate
+    (:func:`repro_torch.analysis.overflow.certified_window`, which equals
+    :func:`repro_torch.mpc.field.acc_window`): that many raw products
+    would wrap int64 and give a wrong product with no error."""
+    # lazy: the analysis package imports the field, which imports this
+    from ..analysis.overflow import certified_window
+
+    cert = certified_window(p)
+    if not 1 <= window <= cert:
+        raise ValueError(
+            f"window={window} is outside 1..{cert}, the certified "
+            f"accumulation window of p={p} (acc_window): {window} raw "
+            f"products can leave int64")
+
+
 def matmul_folded(a: torch.Tensor, b: torch.Tensor, *, p: int,
                   window: int) -> torch.Tensor:
     """Exact ``(a @ b) mod p`` with chunk-then-fold int64 accumulation.
@@ -112,7 +128,10 @@ def matmul_folded(a: torch.Tensor, b: torch.Tensor, *, p: int,
     Up to ``window`` products (:func:`repro_torch.mpc.field.acc_window`)
     are summed raw in int64, then folded with :func:`mod_p`.  Uses int64
     ``matmul``/``einsum``, so it is a CPU op (CUDA has no int64 GEMM).
+    A ``window`` past the certified one raises ``ValueError``
+    (:func:`check_window`).
     """
+    check_window(p, window)
     a = a.to(torch.int64)
     b = b.to(torch.int64)
     k = a.shape[-1]
@@ -141,8 +160,10 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, p: int,
     On the CPU it keeps the JAX stages' rule (``planner.py``'s ``mm``):
     limb GEMMs when ``K > 32``, chunk-then-fold int64 otherwise.  On a
     CUDA tensor it always takes the limb GEMMs: CUDA has no int64 matmul.
-    Both branches are exact, so they agree bit for bit.
+    Both branches are exact, so they agree bit for bit.  A ``window`` past
+    the certified one raises ``ValueError`` on either branch.
     """
+    check_window(p, window)
     if p.bit_length() <= 31 and (a.shape[-1] > 32 or a.device.type != "cpu"):
         return matmul_limbs(a, b, p=p)
     return matmul_folded(a, b, p=p, window=window)

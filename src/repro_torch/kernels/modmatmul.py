@@ -40,10 +40,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from ..mpc.errors import ShapeContractError
+from ..mpc.errors import InvariantError, ShapeContractError
 from ..mpc.field import acc_window
 from . import _build
 from .barrett import matmul_plain, mod_p
@@ -169,6 +170,29 @@ def modmatmul_tc_emulation(a: torch.Tensor, b: torch.Tensor, *, p: int,
     return out
 
 
+def check_k_run(run: Optional[int] = None) -> int:
+    """Hold a tensor-core K-run (default :data:`K_RUN_MAX`) to the overflow
+    proof's (:func:`repro_torch.analysis.overflow.certified_k_run`): raise
+    ``InvariantError`` unless they agree, since a longer run wraps the s32
+    diagonals and gives a wrong product with no error."""
+    # lazy: the analysis package imports this module's constants
+    from ..analysis.overflow import certified_k_run
+
+    run = K_RUN_MAX if run is None else run
+    cert = certified_k_run()
+    if run != cert:
+        raise InvariantError(
+            f"K_RUN_MAX = {run} but the overflow proof certifies a K-run "
+            f"of {cert}: the tensor-core schedule has drifted")
+    return cert
+
+
+@functools.lru_cache(maxsize=None)
+def _certified_run() -> int:
+    """:func:`check_k_run` once, at the first tensor-core launch."""
+    return check_k_run()
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -251,6 +275,7 @@ def _launch_cuda_core(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tens
 
 def _launch_tensor_core(a: torch.Tensor, b: torch.Tensor, *,
                         p: int) -> torch.Tensor:
+    _certified_run()
     w, m, k = a.shape
     n = b.shape[2]
     p_, bits, c, n_folds, _ = _build.fold_args(p)

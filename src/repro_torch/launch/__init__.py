@@ -1,1 +1,2 @@
-"""Launch: the training driver (port of ``repro/launch``; ``train.py`` so far)."""
+"""Launch: the training and serving drivers (port of ``repro/launch``;
+``train.py`` and ``serve.py`` so far)."""

@@ -102,6 +102,7 @@ def to_jax_tree(cfg: ModelConfig, named: Mapping[str, torch.Tensor]) -> dict:
                 node, i = seq[at], i + 2
             else:
                 node, i = node.setdefault(parts[i], {}), i + 1
+        # analysis: allow(host-sync): the JAX tree is numpy on the host
         node[parts[-1]] = x.detach().float().cpu().numpy()
     if get_model(cfg) not in (jamba, whisper):
         layers = tree["layers"]

@@ -372,9 +372,10 @@ class MPCSession:
         one.  The local backend folds the dead set into each decode's
         survivor mask; the batched backend reports it to its elastic pools,
         so spares and retune/replan escalation engage."""
-        self._dead.update(int(w) for w in np.atleast_1d(
-            # analysis: allow(host-sync): worker ids are host data
-            np.asarray(workers, np.int64)).tolist())
+        # analysis: allow(host-sync): worker ids are host data
+        ids = np.atleast_1d(np.asarray(workers, np.int64))
+        # analysis: allow(host-sync): a numpy array's ids, already on the host
+        self._dead.update(int(w) for w in ids.tolist())
         self.backend.fail(frozenset(self._dead))
 
     def _absorb_byzantine(self) -> None:

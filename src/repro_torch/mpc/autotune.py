@@ -352,6 +352,7 @@ class CostModel:
         if not (np.all(np.isfinite(w)) and np.any(w > 0)):
             return _fall_back(
                 f"fit degenerate over {len(rows)} samples (weights "
+                # analysis: allow(host-sync): w is a numpy array on the host
                 f"{w.tolist()}): trajectory is collinear or zero-signal")
         return cls(computation=float(w[0]), storage=float(w[1]),
                    communication=float(w[2]), dispatch=dispatch)

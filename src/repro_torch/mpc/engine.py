@@ -410,6 +410,7 @@ class MPCEngine:
         t0 = time.perf_counter()
         out = fn()
         if self.device.type == "cuda":
+            # analysis: allow(host-sync): only with a recorder, to time the stage
             torch.cuda.synchronize(self.device)
         self.recorder.record(device=-1, klass=proto.spec.scheme, phase=phase,
                              scalars=scalars,

@@ -83,16 +83,14 @@ def as_int64(x, device=None) -> torch.Tensor:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 
-    ``device`` when given; otherwise the card.  With no card and no
-    ``device`` this raises: the port never quietly runs on the CPU.
+    ``device`` when given; otherwise the card.  With no card, ``None`` or
+    a CUDA device raises: the port never quietly runs on the CPU.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available: pass device='cpu' to run the "
-                "port on the CPU")
-        device = "cuda"
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available: pass device='cpu' to run the port on "
+            "the CPU")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

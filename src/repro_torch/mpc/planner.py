@@ -157,6 +157,7 @@ class ProtocolStages:
                 t0 = _time.perf_counter()
                 out = fn(*args, **kw)
                 if dev is not None and dev.type == "cuda":
+                    # analysis: allow(host-sync): timed stages only, by design
                     torch.cuda.synchronize(dev)
                 recorder.record(
                     device=-1, klass=klass, phase=name,

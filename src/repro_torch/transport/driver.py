@@ -252,6 +252,7 @@ def run_blocks(dealer: Dealer, ops, *, pipelined: bool = True,
             if (barrier or recorder is not None) and dev.type == "cuda":
                 # the barriered baseline completes each phase before the
                 # next block; the pipelined path fences only when timing
+                # analysis: allow(host-sync): barrier or recorder only
                 torch.cuda.synchronize(dev)
             record(-1, "decode", decode_scalars,
                    (time.perf_counter() - t0) * 1e6)

@@ -168,6 +168,7 @@ def worker_main(sock: socket.socket, device) -> None:
                     f_b = torch.from_numpy(arrays["f_b"]).to(dev)
                     # the reply leaves as host bytes: .numpy() after the
                     # copy to the host, which waits for the kernels
+                    # analysis: allow(host-sync): the reply is host bytes
                     g = g_row(stages, g_col, f_a, f_b, p).cpu().numpy()
                     us = (time.perf_counter() - t0) * 1e6
                     if chaos.dies_at(bid, "shares"):

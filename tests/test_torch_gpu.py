@@ -46,6 +46,11 @@ running under autograd, and reduced rwkv and jamba train steps on the card
 against the CPU's.  The selective scan's ``tma`` and
 ``simple`` instances on the same operands.
 
+Every mod-p kernel on all-(p-1) operands at the edge of the overflow
+obligation that certifies it (``repro_torch.analysis.overflow``), equal to
+the closed form; ``python -m repro_torch.launch.serve`` on the card at a
+reduced config, launching the model's kernel, the same tokens twice.
+
 Without the ``gpu`` marker (they run on the CPU; nothing launches): the
 backward's and the scan's choosers on strided CPU views."""
 import dataclasses
@@ -818,6 +823,68 @@ def test_gpu_ring_fold_equals_plain(cuda, p, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["ring_fold"] == cases + 2
 
+
+
+# ------------------------------------------- the overflow certificates' edges
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", PRIMES)
+def test_gpu_mod_p_kernels_at_the_certificates_edges(cuda, p):
+    """Every mod-p kernel on all-(p-1) operands at the edge its overflow
+    obligation certifies (``repro_torch.analysis.overflow``), equal to the
+    closed form ``K (p-1)^2 mod p``: ``tensor_core`` at K = 2
+    ``certified_k_run()`` + 1 (two full s32 runs and a ragged one);
+    ``cuda_core`` at K = 2 ``certified_window(p)`` + 1 with one block a
+    tile (each accumulator folds at the window twice) and with K split
+    (the ``sum_splits`` pass); ``skinny`` and ``polyeval`` at the same K;
+    ``ring_fold`` at a + b = 2 (p - 1), int32 and int64."""
+    from repro_torch.analysis import overflow
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k_win = 2 * overflow.certified_window(p) + 1
+    k_run = 2 * overflow.certified_k_run() + 1
+
+    def full(*shape, dtype=torch.int64):
+        return torch.full(shape, p - 1, dtype=dtype, device=cuda)
+
+    cases = [("tensor_core", (1, 64, k_run, 64)),
+             ("cuda_core", (2, 768, k_win, 768)),
+             ("cuda_core", (1, 64, k_win, 64)),
+             ("skinny", (2, 17, k_win, 1))]
+    assert mm.k_splits(2, 768, k_win, 768, sms)[0] == 1
+    assert mm.k_splits(1, 64, k_win, 64, sms)[0] > 1 or p == P_MERSENNE31
+    for instance, (w, m, k, n) in cases:
+        got = mm._launch(full(w, m, k), full(w, k, n), p=p, instance=instance)
+        assert bool((got == k * (p - 1) ** 2 % p).all()), (instance, k)
+    got = polyeval(full(17, k_win), full(k_win, 1001), p=p)
+    assert bool((got == k_win * (p - 1) ** 2 % p).all())
+    for dtype in (torch.int32, torch.int64):
+        x = full(5, 1025, dtype=dtype)
+        assert bool((ring_fold(x, x, p=p) == p - 2).all())
+
+
+# ---------------------------------------------------- the serving command line
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernel", [("llama3.2-1b", "flash_attention"),
+                                         ("rwkv6-1.6b", "rwkv6")])
+def test_gpu_launch_serve_runs_the_kernels_twice_alike(cuda, arch, kernel,
+                                                       capsys):
+    """``python -m repro_torch.launch.serve`` on the card (its default
+    device) at a reduced config: the model's kernel launches, the tokens
+    lie in the vocab, and a second run gives the same tokens."""
+    from repro_torch.launch import serve as cli
+
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
+            "16", "--max-new", "4"]
+    reset_launch_counts()
+    first = cli.main(argv)
+    torch.cuda.synchronize()
+    launched = launch_counts()[kernel]
+    second = cli.main(argv)
+    assert launched > 0
+    assert first.is_cuda and first.shape == (2, 4)
+    assert int(first.max()) < reduced(get_config(arch)).vocab
+    assert torch.equal(first, second)
+    assert capsys.readouterr().out.count("[serve] generated (2, 4)") == 2
 
 def _sharded_session(devices, p, **kw):
     from repro_torch.parallel import make_mesh
