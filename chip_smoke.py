@@ -264,13 +264,30 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate, int8 and bf16 tensor-core
-# peaks, fp32 peak outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
-FP32_OPS_PER_S = 67e12
+# the package's work formulas (what each kernel must move and compute) and
+# the NVIDIA H100 SXM data sheet's rates (dense); the kernels' meta
+# branches report the same formulas to the dry-run's tally
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the multi-rank harness the card tests and tools/multicard_train.py share
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import multicard_train as mc  # noqa: E402
+from repro_torch.kernels.work import (  # noqa: E402
+    BF16_OPS_PER_S,
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+    TF32_OPS_PER_S,
+    attn_work,
+    bwd_work,
+    fold_work,
+    limbs,
+    mm_work,
+    pe_work,
+    scan_bwd_work,
+    scan_work,
+    wkv_bwd_work,
+    wkv_work,
+)
 
 D_MODEL, VOCAB = 2048, 128256      # llama3.2-1b: hidden size, vocabulary
 MAIN_BLOCKS = 63                   # choose_block(2, 2, 1, 2048, 128256) -> m = 2048
@@ -347,45 +364,11 @@ def elementwise(key):
     return name in ELEMENTWISE
 
 
-def limbs(p):
-    """8-bit limbs per field element under the int8 tensor-core schedule
-    (``csrc/modmatmul_tc.cu``): 4 for both primes, 16 limb products."""
-    return -(-p.bit_length() // 8)
-
-
 def bound(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
     """(ms, 'bytes'|'operations'): the least time an H100 could take."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def mm_work(w, m, k, n, p):
-    return 8 * w * (m * k + k * n + m * n), 2 * w * m * k * n * limbs(p) ** 2
-
-
-def pe_work(n, k, c, p):
-    return 8 * (n * k + k * c + n * c), 2 * n * k * c * limbs(p) ** 2
-
-
-def fold_work(n, elem_bytes):
-    """(bytes, 32-bit integer ops) of one ``ring_fold`` of n elements: two
-    inputs read and the output written once; an add and a compare-subtract
-    per element."""
-    return 3 * n * elem_bytes, 2 * n
-
-
-def attn_work(q, k, causal, q_offset):
-    """(bytes, flops, peak rate) of one attention call: q, k, v read once
-    and o written once; 4 D flops (q k and p v) per visible (row, key) pair
-    and head, counted for this call's mask."""
-    b, t, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    pairs = (sum(max(0, min(s, q_offset + i + 1)) for i in range(t)) if causal
-             else t * s)
-    nbytes = q.element_size() * (2 * b * t * hq * d + 2 * b * s * hkv * d)
-    peak = BF16_OPS_PER_S if q.element_size() == 2 else FP32_OPS_PER_S
-    return nbytes, 4 * d * hq * b * pairs, peak
 
 
 def sdpa(q, k, v, causal):
@@ -397,17 +380,6 @@ def sdpa(q, k, v, causal):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True)
-
-
-def wkv_work(b, t, h, elem_bytes, state_in):
-    """(bytes, sequential fp32 flops) of one WKV call at K = V = 64: r, k,
-    v, w and u read once (and state0 when given), out and the final state
-    written once in fp32; about 7 K V flops per (b, t, h) in the sequential
-    form."""
-    d, kv = RWKV_HEAD, RWKV_HEAD * RWKV_HEAD
-    nbytes = (4 * b * t * h * d * elem_bytes + 4 * h * d + 4 * b * t * h * d
-              + 4 * b * h * kv * (2 if state_in else 1))
-    return nbytes, 7 * kv * b * t * h
 
 
 def wkv_faults(r, k, v, w, u):
@@ -1441,16 +1413,6 @@ def moe_phase(torch, np, dev, seed, hold_flash):
     return rec
 
 
-def scan_work(b, t, di, n, elem_bytes):
-    """(bytes, fp32 operations) of one selective scan: u, dt, b and c read
-    once in their dtype and a in fp32, y and the final state written once
-    in fp32; about 6 operations per (b, t, d, n): dt a, the exponential,
-    the update's fma (2), h c and its share of the sum over n."""
-    nbytes = (elem_bytes * (2 * b * t * di + 2 * b * t * n) + 4 * di * n
-              + 4 * b * t * di + 4 * b * di * n)
-    return nbytes, 6 * b * t * di * n
-
-
 def scan_faults(u, dt, a, b_t, c_t):
     """Two wrong results for the check against the plain version to
     reject, each made with the plain version: the decay dropped (a = 0),
@@ -2033,22 +1995,6 @@ CUT_TOL = 1e-4
 WHISPER_TRAIN = (8, 448, 1500, 3)
 
 
-def bwd_work(q, k, causal, q_offset):
-    """(bytes, flops, peak rate) of one backward: q, k, v, o, dO and lse
-    read once, dq, dk and dv written once; the five products (S = q k^T
-    recomputed, dP = dO v^T, dV = P^T dO, dQ = dS k, dK = dS^T q) take 10 D
-    flops per visible (row, key) pair and head, counted for this call's
-    mask."""
-    b, t, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    pairs = (sum(max(0, min(s, q_offset + i + 1)) for i in range(t)) if causal
-             else t * s)
-    el = q.element_size()
-    nbytes = el * (6 * b * t * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * t
-    peak = BF16_OPS_PER_S if el == 2 else FP32_OPS_PER_S
-    return nbytes, 10 * d * hq * b * pairs, peak
-
-
 def bwd_faults(q, k, v, o, do, lse, ref, causal, q_offset):
     """Three wrong backwards for ``grad_agreement`` to reject, made with the
     plain version: D omitted (O = 0 makes D = rowsum(dO o O) = 0), the scale
@@ -2229,16 +2175,6 @@ JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_DROP = 2, 6, 0.5
 STEP_TOL = 1e-5
 
 
-def wkv_bwd_work(b, t, h, elem_bytes):
-    """(bytes, fp32 flops) of one WKV backward at K = V = 64: r, k, v, w
-    read and dr, dk, dv, dw written once in their dtype, dout read in fp32,
-    u read and du written; 10 K V flops per (b, t, h): S's update and
-    S_{t-1} dout_t, G's update, G_t v_t and k_t G_t."""
-    d, kv = RWKV_HEAD, RWKV_HEAD * RWKV_HEAD
-    nbytes = 8 * b * t * h * d * elem_bytes + 4 * b * t * h * d + 8 * h * d
-    return nbytes, 10 * kv * b * t * h
-
-
 def wkv_chunked_work(b, t, h, elem_bytes):
     """(bytes, TF32 flops) of the chunked instance's own work at K = V = 64
     and chunks of 64: the function's bytes (:func:`wkv_bwd_work`) plus its
@@ -2253,17 +2189,6 @@ def wkv_chunked_work(b, t, h, elem_bytes):
     macs = (64 ** 3 + 3 * 64 ** 3 + 64 ** 3
             + 6 * 64 * 64 * 16 + 12 * 64 * 16 * 64)
     return nbytes, 2 * macs * b * n * h
-
-
-def scan_bwd_work(b, t, di, n, elem_bytes):
-    """(bytes, fp32 operations) of one scan backward: u, dt read and du,
-    ddt written in their dtype, dy and the checkpoints read in fp32, b, c
-    read and db, dc written, a read and da written; about 20 fp32
-    operations per (b, t, d, n) (G's update, the four gradients' terms)."""
-    nbytes = (4 * b * t * di * elem_bytes + 4 * b * t * di
-              + 4 * b * (-(-t // 32)) * di * n + 4 * b * t * n * elem_bytes
-              + 8 * di * n)
-    return nbytes, 20 * b * t * di * n
 
 
 def wkv_grad_ref(torch, ops, s0, dout, ds):
@@ -2647,15 +2572,189 @@ def recurrent_bwd_phase(torch, dev, gen, sms):
     return rec
 
 
-class RepeatedBatch:
-    """One batch of a :class:`~repro_torch.data.pipeline.SyntheticTokens`
-    stream, repeated at every step (a loss that must fall)."""
+# the multi-rank phase: (a) llama3.2-1b at full width and depth, 3 steps on
+# one rank of NCCL against the one-card train_loop; (b) two ranks on the
+# one card over gloo, llama3.2-1b at full width cut to 2 layers, 3 steps:
+# FSDP (data = 2) against one rank with 2 microbatches, then pod = 2 with
+# compress_pod; both on the repeated [4, 2048] batch of the train phase
+RANK_STEPS, RANK_LAYERS = 3, 2
+# losses and weights of two trainers that must agree (relative, Frobenius)
+RANK_TOL = 1e-6
 
-    def __init__(self, tokens):
-        self.host = tokens.batch_np(0)
 
-    def batch_np(self, step):
-        return self.host
+def _rank_tc():
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(peak_lr=3e-4, warmup=0, stable=10_000, decay=1_000,
+                       seq_chunk=512)
+
+
+def multirank_phase(torch, np, dev, seed, card):
+    """The multi-rank trainer on the card (phase 16): (a) one NCCL rank
+    against the one-card trainer at full width and depth, (b) two ranks
+    on the one card over gloo, FSDP against one rank with microbatches and
+    ``compress_pod``'s guarantees read from the trainer's own reductions
+    at every step (``tools/multicard_train.py``), (c) the dry-run report
+    on the card's machine (no JAX there).  Returns the ``{"multirank":
+    ...}`` record."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import process_mesh
+    from repro_torch.launch.train import init_ranks, train_loop
+    from repro_torch.parallel import fsdp
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-1b")
+    tc = _rank_tc()
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=seed)
+    data = mc.Repeated(tokens)
+    kw = dict(steps=RANK_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              ckpt_dir=None, log_every=100, seed=seed, device=dev, data=data)
+    print(f"multirank: (a) {cfg.name} at full width and depth, {RANK_STEPS} "
+          f"steps of the repeated [{TRAIN_BATCH},{TRAIN_SEQ}] batch: the "
+          f"one-card train_loop, then one rank of NCCL (launch.train's "
+          f"--nproc 1 path) on the same seed and batch", flush=True)
+    p1, o1, l1 = train_loop(cfg, tc, **kw)
+    torch.cuda.synchronize()
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'rendezvous')}"
+        init_ranks(0, 1, device="cuda", backend=None, init_method=init)
+        try:
+            backend = dist.get_backend()
+            mesh = process_mesh((1,), ("data",), device="cuda")
+            fsdp.reset_stats()
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            history = []
+            p2, o2, l2 = train_loop(cfg, tc, mesh=mesh, history=history, **kw)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            calls = dict(fsdp.STATS["calls"])
+        finally:
+            dist.destroy_process_group()
+    require(backend == "nccl", f"(a) the rank ran on {backend}, not nccl")
+    n_leaves = sum(1 for _ in p1.parameters())
+    require(calls == {"all_gather": RANK_STEPS * (n_leaves + 1)},
+            f"(a) collectives {calls}: want one NCCL all_gather a gradient "
+            f"and one for the loss, each step ({n_leaves} leaves)")
+    require(counts["flash_attention_bwd"] == cfg.n_layers * RANK_STEPS,
+            f"(a) launch counts {counts}")
+    cmp = mc.compare(
+        {"losses": l2, "weights": {n: p.detach()
+                                   for n, p in p2.named_parameters()}},
+        {"losses": l1, "weights": {n: p.detach()
+                                   for n, p in p1.named_parameters()}})
+    step_ms = mc.steady_ms(history)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"  (a) losses one-card {l1}, NCCL rank {l2}: largest relative "
+          f"difference {cmp['loss_diff']:.3e}; weights: "
+          f"{cmp['bit_equal_leaves']} of {n_leaves} leaves bit-equal, "
+          f"largest relative Frobenius difference {cmp['weight_diff']:.3e} "
+          f"(the check: {RANK_TOL}); {step_ms:.1f} ms per step over steps "
+          f"1..{RANK_STEPS - 1} ({tok_s:.0f} tokens/s), peak memory "
+          f"{peak / 2**30:.2f} GiB (both trainers' states resident); "
+          f"collectives {calls} on {backend} ({card})", flush=True)
+    require(cmp["loss_diff"] <= RANK_TOL and cmp["weight_diff"] <= RANK_TOL,
+            f"(a) the NCCL rank differs from the one-card trainer: {cmp}")
+    rec["a"] = {"losses": l2, "one_card_losses": l1,
+                "loss_diff": cmp["loss_diff"],
+                "weight_diff": cmp["weight_diff"],
+                "bit_equal_leaves": cmp["bit_equal_leaves"],
+                "leaves": n_leaves, "step_ms": step_ms, "tokens_per_s": tok_s,
+                "peak_gib": peak / 2**30, "collectives": calls,
+                "backend": backend}
+    del p1, o1, p2, o2
+    torch.cuda.empty_cache()
+
+    # ---- (b) two ranks on the one card over gloo
+    cut = dataclasses.replace(cfg, n_layers=RANK_LAYERS)
+    print(f"multirank: (b) {cut.name} at full width cut to {RANK_LAYERS} "
+          f"layers, [{TRAIN_BATCH},{TRAIN_SEQ}] split 2 + 2 over two ranks "
+          f"on the one card (gloo): FSDP (data = 2) against one rank with 2 "
+          f"microbatches, then pod = 2 with compress_pod", flush=True)
+    job = dict(cfg=cut, tc=tc, device="cuda", backend="gloo",
+               steps=RANK_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    ref = mc.one_rank(cut, dataclasses.replace(tc, microbatches=2),
+                      device=dev, steps=RANK_STEPS, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, seed=seed)
+    torch.cuda.empty_cache()
+    f = mc.spawn(**job, shape=(2,), axes=("data",))
+    require(f["backend"] == "gloo" and len(f["split"]) > 0,
+            f"(b) FSDP on {f['backend']}, split leaves {f['split']}")
+    cmp = mc.compare(f, ref)
+    f_ms = mc.steady_ms(f["history"])
+    coll_ms = 1e3 * f["coll_s"] / RANK_STEPS
+    coll_share = f["coll_s"] / sum(h["s"] for h in f["history"])
+    print(f"  (b) FSDP: {len(f['split'])} leaves split over data; losses "
+          f"{f['losses']} against one rank's {ref['losses']}: largest "
+          f"relative difference {cmp['loss_diff']:.3e}; weights: "
+          f"{cmp['bit_equal_leaves']} of {cmp['leaves']} leaves bit-equal, "
+          f"largest relative Frobenius difference {cmp['weight_diff']:.3e} "
+          f"(the check: {RANK_TOL}); rank 0: {f_ms:.1f} ms per step over "
+          f"steps 1..{RANK_STEPS - 1}; gloo's collectives {coll_ms:.1f} ms a "
+          f"step on the host, {100 * coll_share:.1f} % of the {RANK_STEPS} "
+          f"steps' time ({f['calls']}); peak memory "
+          f"{f['peak'] / 2**30:.2f} GiB a rank; the one-rank reference "
+          f"{1e3 * ref['s'] / RANK_STEPS:.1f} ms a step (step 0's set-up "
+          f"included); {f['wall_s']:.1f} s wall with the spawn ({card})",
+          flush=True)
+    require(cmp["loss_diff"] <= RANK_TOL and cmp["weight_diff"] <= RANK_TOL,
+            f"(b) FSDP differs from one rank with microbatches: {cmp}")
+    c = mc.spawn(**job, shape=(2,), axes=("pod",), compress=True)
+    rep = c["report"]
+    print(f"  (b) compress_pod, the trainer's own reductions at each of "
+          f"{rep['steps']} steps: residuals fed back from the state "
+          f"{rep['fed_back']}, scale {rep['scale']}, q {rep['q_exact']}, "
+          f"residuals equal g32 - q*scale {rep['residual_exact']}, the state "
+          f"holds the last {rep['state_holds_residuals']}; worst |out - "
+          f"mean| / (scale/2) {rep['worst_over_half_scale']:.4f}; losses "
+          f"{c['losses']}; {c['calls']} ({c['wall_s']:.1f} s wall with the "
+          f"spawn)", flush=True)
+    require(rep["ok"], f"(b) compressed_psum's guarantees fail: {rep}")
+    require(c["losses"][-1] < c["losses"][0],
+            f"(b) compress_pod: the loss did not fall {c['losses']}")
+    rec["b"] = {"fsdp": {"losses": f["losses"],
+                         "reference_losses": ref["losses"],
+                         "loss_diff": cmp["loss_diff"],
+                         "weight_diff": cmp["weight_diff"],
+                         "bit_equal_leaves": cmp["bit_equal_leaves"],
+                         "split_leaves": len(f["split"]), "step_ms": f_ms,
+                         "gloo_ms_per_step": coll_ms,
+                         "gloo_share": coll_share, "calls": f["calls"],
+                         "peak_gib": f["peak"] / 2**30},
+                "compress": {"losses": c["losses"], "report": rep,
+                             "calls": c["calls"]}}
+
+    # ---- (c) the dry-run on this machine (no JAX here)
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
+    cell = dryrun.run_cell("llama3.2-1b", "train_4k", multi_pod=False,
+                           out_dir=out_dir)
+    mpc = dryrun.run_mpc_cell(multi_pod=False, out_dir=out_dir)
+    mem = cell["memory"]
+    print(f"  (c) dry-run llama3.2-1b x train_4k on the (16, 16) mesh: per "
+          f"device {mem['argument_size_in_bytes'] / 1e9:.3f} GB arguments + "
+          f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB temporaries of 80 GB; "
+          f"roofline {cell['roofline']}; MPC step: {mpc['roofline']}",
+          flush=True)
+    rec["c"] = {"cell": {"memory": mem, "roofline": cell["roofline"],
+                         "flops": cell["hlo_analysis"]["flops"],
+                         "collective_bytes": cell["collectives"]["total_bytes"]},
+                "mpc": {"roofline": mpc["roofline"],
+                        "flops": mpc["hlo_analysis"]["flops"],
+                        "kernel_calls": mpc["hlo_analysis"]["kernel_calls"]}}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"multirank phase: {rec['phase_s']:.1f} s", flush=True)
+    return rec
 
 
 def train_phase(torch, np, dev, seed):
@@ -2712,7 +2811,7 @@ def train_phase(torch, np, dev, seed):
     params, opt_state, losses = train_loop(
         cfg, tc, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         ckpt_dir=None, log_every=1, seed=seed, device=dev,
-        data=RepeatedBatch(tokens), history=history)
+        data=mc.Repeated(tokens), history=history)
     torch.cuda.synchronize()
     counts = launch_counts()
     inst = instance_counts()
@@ -2985,7 +3084,7 @@ def train_recurrent(torch, np, dev, seed, cfg, steps, drop, per_mb, kernel,
     params, opt_state, losses = train_loop(
         cfg, tc, steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         ckpt_dir=None, log_every=1, seed=seed, device=dev,
-        data=RepeatedBatch(tokens), history=history)
+        data=mc.Repeated(tokens), history=history)
     torch.cuda.synchronize()
     counts = launch_counts()
     by_instance = {name: instance_counts()[name] for name in instances}
@@ -4022,6 +4121,7 @@ def main(argv=None):
     bwd_rec = flash_bwd_phase(torch, dev, gen)
     rbwd_rec = recurrent_bwd_phase(torch, dev, gen, sms)
     train_rec = train_phase(torch, np, dev, args.seed)
+    multirank_rec = multirank_phase(torch, np, dev, args.seed, card)
 
     # ------------------------------------------------------------ report
 
@@ -4277,6 +4377,7 @@ def main(argv=None):
         k: whisper_rec[k] for k in ("times", "peak_gib", "n_params",
                                     "phase_s")}}))
     print(json.dumps({"serve_cli": serve_cli_rec}))
+    print(json.dumps({"multirank": multirank_rec}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the "
           f"kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))

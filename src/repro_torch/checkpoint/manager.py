@@ -20,6 +20,17 @@ leaf is stored as its ``uint16`` bits with ``"bfloat16"`` in the manifest,
 and read back as such.  ``restore`` returns the structure of ``like``: new
 tensors on each ``like`` leaf's device, and an ``nn.Module`` restored in
 place (its parameters overwritten: a full-width model is not copied).
+
+On several ranks (``layout``, the multi-rank step's
+:class:`~repro_torch.parallel.fsdp.Layout`) every rank calls ``save``:
+each leaf split over ``data`` is all-gathered, rank 0 writes the whole
+tree (the one-card layout, so either trainer resumes from it) and the
+ranks meet at a barrier.  ``restore`` reads the whole tree on every rank
+and keeps each rank's slice of the split leaves, by spec.  The residuals
+of a ``compress_pod`` step (``opt/feedback/...``) differ from pod to pod:
+they are stored stacked, ``[pod, *leaf]``, and each rank takes its pod's
+(:meth:`~repro_torch.parallel.fsdp.Layout.saved`,
+:meth:`~repro_torch.parallel.fsdp.Layout.restored`).
 """
 from __future__ import annotations
 
@@ -79,26 +90,47 @@ def _flatten(tree, prefix: str = "") -> dict:
     return {"arrays": arrays, "dtypes": dtypes}
 
 
-def _host_tree(tree):
+def _host_tree(tree, layout=None, path: str = ""):
     """The same tree with every tensor leaf copied to host memory (a
-    snapshot the writer thread can serialize while training goes on)."""
+    snapshot the writer thread can serialize while training goes on);
+    with ``layout``, each leaf as the checkpoint holds it first (a
+    collective: every rank calls this)."""
     kids = _children(tree)
     if kids is None:
         if isinstance(tree, torch.Tensor):
-            return tree.detach().to("cpu", copy=True)
+            leaf = tree.detach()
+            if layout is not None:
+                leaf = layout.saved(path, leaf)
+            return leaf.to("cpu", copy=True)
         return tree
-    return {key: _host_tree(child) for key, child in kids}
+    return {key: _host_tree(child, layout, f"{path}/{key}" if path else key)
+            for key, child in kids}
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, layout=None):
         self.dir = directory
         self.keep = keep
+        self.layout = layout
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
+    @property
+    def _writer(self) -> bool:
+        return self.layout is None or self.layout.rank == 0
+
     # ------------------------------------------------------------- writing
-    def save(self, step: int, state: Any) -> str:
+    def save(self, step: int, state: Any) -> Optional[str]:
+        """Commit ``state`` as ``step``; the path (None on a rank that
+        does not write)."""
+        if self.layout is not None:
+            state = _host_tree(state, self.layout)
+            path = self._write(step, state) if self._writer else None
+            self.layout.barrier()
+            return path
+        return self._write(step, state)
+
+    def _write(self, step: int, state: Any) -> str:
         flat = _flatten(state)
         name = f"step_{step:08d}"
         tmp = os.path.join(self.dir, name + ".tmp")
@@ -122,15 +154,20 @@ class CheckpointManager:
 
     def save_async(self, step: int, state: Any) -> None:
         self.wait()
-        host_state = _host_tree(state)  # snapshot off-device
+        # a snapshot off-device (split leaves gathered: a collective, now)
+        host_state = _host_tree(state, self.layout)
+        if not self._writer:
+            return
         self._thread = threading.Thread(
-            target=self.save, args=(step, host_state), daemon=True)
+            target=self._write, args=(step, host_state), daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.layout is not None:
+            self.layout.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -168,6 +205,8 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr.copy())
+            if self.layout is not None:
+                t = self.layout.restored(key, t)
             if isinstance(like_leaf, torch.Tensor):
                 return t.to(device=like_leaf.device, dtype=like_leaf.dtype)
             if isinstance(like_leaf, np.ndarray):

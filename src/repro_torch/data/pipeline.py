@@ -8,9 +8,9 @@ to checkpoint beyond the step counter).
 Port of ``repro/data/pipeline.py``.  :func:`_hash_u64`,
 :meth:`SyntheticTokens.batch_np` and :class:`SyntheticMatrices` are numpy,
 copied from the reference (a test pins them equal); :meth:`SyntheticTokens.batch`
-puts a batch on a torch device in place of the reference's mesh form (the
-port's trainer runs on one card; multi-card sharding is ROADMAP queue 1,
-item 16).
+puts a batch, or one rank's rows ``lo:hi`` of it, on a torch device in
+place of the reference's mesh form: each rank of the multi-rank trainer
+materialises its own shard, as each host does there.
 """
 from __future__ import annotations
 
@@ -48,10 +48,11 @@ class SyntheticTokens:
         toks = (_hash_u64(ctr) % np.uint64(self.vocab)).astype(np.int32)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
-    def batch(self, step: int, *, device="cuda") -> dict:
-        """:meth:`batch_np` as int64 tensors on ``device``."""
+    def batch(self, step: int, *, device="cuda", lo: int = 0,
+              hi: Optional[int] = None) -> dict:
+        """:meth:`batch_np` (rows ``lo:hi``) as int64 tensors on ``device``."""
         return {k: torch.as_tensor(v, dtype=torch.int64).to(device)
-                for k, v in self.batch_np(step).items()}
+                for k, v in self.batch_np(step, lo=lo, hi=hi).items()}
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

@@ -16,7 +16,10 @@
   (the hybrid family's prefill, and training's forward; a port-only
   kernel) and its backward (``selective_scan_bwd``: du, ddt, da, db, dc);
 * :mod:`._build` — ``nvcc`` build into ``build/kernels/`` and ``ctypes``
-  binding, at first use.
+  binding, at first use;
+* :mod:`.work` — what each kernel moves and computes; every wrapper's
+  ``meta`` branch (shapes only, no launch, never the plain version)
+  reports it to the dry-run's tally.
 
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 wrappers' launch counters, so a run can show which kernels it went through;

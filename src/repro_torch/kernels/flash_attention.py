@@ -56,7 +56,7 @@ from typing import Optional
 import torch
 
 from ..mpc.errors import ShapeContractError
-from . import _build
+from . import _build, work
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)       # the kernel's template instances
@@ -327,7 +327,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :class:`FlashAttention`, whose backward is :func:`flash_attention_bwd`.
     """
     _check(q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, q_offset, scale)
@@ -337,7 +337,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _forward(q, k, v, *, causal: bool, q_offset: int, scale: Optional[float],
              with_lse: bool = False):
     """``(out, lse or None)``: the plain version on the CPU, else the
-    chosen kernel, counted (and in ``lse_launches`` when it writes lse)."""
+    chosen kernel, counted (and in ``lse_launches`` when it writes lse);
+    on ``meta``, empty outputs whose work goes to the tally
+    (:mod:`.work`)."""
+    if q.device.type == "meta":
+        nbytes, flops, _ = work.attn_work(q, k, causal, q_offset)
+        work.record("flash_attention", nbytes, flops)
+        lse = (q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                           dtype=torch.float32) if with_lse else None)
+        return q.new_empty(q.shape), lse
     if q.device.type == "cpu":
         if with_lse:
             return flash_attention_plain(q, k, v, causal=causal,
@@ -462,6 +470,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ShapeContractError(
             f"flash_attention_bwd needs an fp32 lse {(b, hq, t)}, got "
             f"{lse.dtype} {tuple(lse.shape)}", shapes=(lse.shape,))
+    if q.device.type == "meta":
+        nbytes, flops, _ = work.bwd_work(q, k, causal, q_offset)
+        work.record("flash_attention_bwd", nbytes, flops)
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          q_offset=q_offset, scale=scale)

@@ -46,7 +46,7 @@ import torch
 
 from ..mpc.errors import InvariantError, ShapeContractError
 from ..mpc.field import acc_window
-from . import _build
+from . import _build, work
 from .barrett import matmul_plain, mod_p
 
 
@@ -246,7 +246,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, ndim: int, what: str) -> None:
             raise ValueError(f"{what} takes contiguous operands")
     if a.device != b.device:
         raise ValueError(f"{what} operands on {a.device} and {b.device}")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what} runs on cpu or cuda, not {a.device}")
     lead_ok = ndim == 2 or a.shape[0] == b.shape[0]
     if a.shape[-1] != b.shape[-2] or not lead_ok:
@@ -336,6 +336,15 @@ def _counted(fn, a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     return out
 
 
+def _meta(a: torch.Tensor, b: torch.Tensor, p: int, what: str) -> torch.Tensor:
+    """The meta branch: an empty ``[W, M, N]`` result whose work goes to
+    the tally (:mod:`.work`); nothing launches."""
+    w, m, k = a.shape
+    n = b.shape[2]
+    work.record(what, *work.mm_work(w, m, k, n, p))
+    return a.new_empty((w, m, n))
+
+
 def modmatmul_batched(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
     """``(a[w] @ b[w]) mod p`` for every worker ``w`` in one launch.
 
@@ -343,6 +352,8 @@ def modmatmul_batched(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tens
     (< p) on one device.  Returns ``[W, M, N]`` int64.
     """
     _check(a, b, 3, "modmatmul_batched")
+    if a.device.type == "meta":
+        return _meta(a, b, p, "modmatmul_batched")
     if a.device.type == "cpu":
         return modmatmul_plain(a, b, p=p)
     return _counted(modmatmul_batched, a, b, p)
@@ -353,6 +364,8 @@ def modmatmul(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor:
     kernels' ``W = 1`` launch.  Same operand contract as
     :func:`modmatmul_batched`."""
     _check(a, b, 2, "modmatmul")
+    if a.device.type == "meta":
+        return _meta(a[None], b[None], p, "modmatmul")[0]
     if a.device.type == "cpu":
         return modmatmul_plain(a, b, p=p)
     return _counted(modmatmul, a[None], b[None], p)[0]

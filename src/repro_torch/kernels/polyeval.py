@@ -48,7 +48,7 @@ import torch
 
 from ..mpc.errors import ShapeContractError
 from ..mpc.field import acc_window
-from . import _build
+from . import _build, work
 from .barrett import matmul_plain
 
 Terms = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -162,6 +162,12 @@ def polyeval(vand: torch.Tensor, terms: Terms, *, p: int,
     the kernel, as ``index_select`` asserts."""
     srcs = _sources(terms)
     k, lanes = _check(vand, srcs, rows)
+    if vand.device.type == "meta":
+        n, c = vand.shape[0], srcs[0].shape[-1]
+        nbytes, ops = work.pe_work(n, k, c, p)
+        b = 1 if lanes is None else lanes
+        work.record("polyeval", b * nbytes, b * ops)
+        return vand.new_empty((n, c) if lanes is None else (b, n, c))
     if vand.device.type == "cpu":
         return polyeval_plain(vand, terms, p=p, rows=rows)
     if vand.device.type != "cuda":

@@ -29,7 +29,7 @@ import functools
 import torch
 
 from ..mpc.errors import ShapeContractError
-from . import _build
+from . import _build, work
 
 DTYPES = (torch.int32, torch.int64)
 
@@ -70,6 +70,10 @@ def ring_fold(acc: torch.Tensor, chunk: torch.Tensor, *, p: int) -> torch.Tensor
                          f"{chunk.device}")
     if not 2 <= p < 2**31:
         raise ValueError(f"ring_fold takes primes below 2^31, got p={p}")
+    if acc.device.type == "meta":
+        work.record("ring_fold", *work.fold_work(acc.numel(),
+                                                 acc.element_size()))
+        return torch.empty_like(acc)
     if acc.device.type == "cpu":
         return ring_fold_plain(acc, chunk, p=p)
     if acc.device.type != "cuda":

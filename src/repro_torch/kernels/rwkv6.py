@@ -67,7 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..mpc.errors import ShapeContractError
-from . import _build
+from . import _build, work
 
 HEAD_SIZE = 64                  # the kernel's K = V
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -196,7 +196,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     :class:`WKV6`, whose backward is :func:`rwkv6_bwd`.
     """
     _check(r, k, v, w, u, state0)
-    if k.device.type not in ("cpu", "cuda"):
+    if k.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rwkv6 runs on cpu or cuda, not {k.device}")
     ops = (r, k, v, w, u) + (() if state0 is None else (state0,))
     if torch.is_grad_enabled() and any(x.requires_grad for x in ops):
@@ -217,7 +217,14 @@ def _check_kernel(r, k, v, w) -> None:
 
 
 def _forward(r, k, v, w, u, state0):
-    """The plain version on the CPU, else the kernel, counted."""
+    """The plain version on the CPU, else the kernel, counted; on
+    ``meta``, empty outputs whose work goes to the tally (:mod:`.work`)."""
+    if k.device.type == "meta":
+        b, t, h, dk = k.shape
+        work.record("rwkv6", *work.wkv_work(b, t, h, k.element_size(),
+                                            state0 is not None, d=dk))
+        return (k.new_empty((b, t, h, v.shape[-1]), dtype=torch.float32),
+                k.new_empty((b, h, dk, v.shape[-1]), dtype=torch.float32))
     if k.device.type == "cpu":
         return rwkv6_plain(r, k, v, w, u, state0=state0)
     _check_kernel(r, k, v, w)
@@ -564,6 +571,13 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ShapeContractError(
             f"rwkv6_bwd needs dstate {(b, h, dk, dv)}, got "
             f"{tuple(dstate.shape)}", shapes=(dstate.shape,))
+    if k.device.type == "meta":
+        work.record("rwkv6_bwd", *work.wkv_bwd_work(b, t, h, k.element_size(),
+                                                    d=dk))
+        return (r.new_empty(r.shape), k.new_empty(k.shape),
+                v.new_empty(v.shape), w.new_empty(w.shape),
+                u.new_empty(u.shape),
+                None if state0 is None else state0.new_empty(state0.shape))
     if k.device.type == "cpu":
         return rwkv6_bwd_plain(r, k, v, w, u, dout, state0=state0,
                                dstate=dstate)

@@ -67,7 +67,7 @@ from typing import Tuple, Union
 import torch
 
 from ..mpc.errors import ShapeContractError
-from . import _build
+from . import _build, work
 from .rwkv6 import agreement
 
 __all__ = ["agreement", "choose_bwd_instance", "choose_instance",
@@ -210,7 +210,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (the CPU path); the kernel has none.
     """
     _check(u, dt, a, b_t, c_t)
-    if u.device.type not in ("cpu", "cuda"):
+    if u.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"selective_scan runs on cpu or cuda, not {u.device}")
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in (u, dt, a, b_t, c_t)):
@@ -238,7 +238,18 @@ def _check_kernel(u, dt, a, b_t, c_t) -> None:
 def _forward(u, dt, a, b_t, c_t, *, return_state: bool,
              checkpoints: bool = False):
     """``(y, state or None, checkpoints or None)``: the chosen kernel on
-    CUDA operands, counted."""
+    CUDA operands, counted; on ``meta``, empty outputs whose work goes to
+    the tally (:mod:`.work`)."""
+    if u.device.type == "meta":
+        b, t, di = u.shape
+        n = a.shape[1]
+        work.record("selective_scan",
+                    *work.scan_work(b, t, di, n, u.element_size()))
+        f32 = {"dtype": torch.float32}
+        return (u.new_empty((b, t, di), **f32),
+                u.new_empty((b, di, n), **f32) if return_state else None,
+                u.new_empty((b, -(-t // CHECKPOINT), di, n), **f32)
+                if checkpoints else None)
     _check_kernel(u, dt, a, b_t, c_t)
     instance = choose_instance(u, dt, b_t, c_t)
     out = _launch(u, dt, a, b_t, c_t, instance=instance,
@@ -446,6 +457,10 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ShapeContractError(
             f"selective_scan_bwd needs dstate {(bsz, di, n)}, got "
             f"{tuple(dstate.shape)}", shapes=(dstate.shape,))
+    if u.device.type == "meta":
+        work.record("selective_scan_bwd",
+                    *work.scan_bwd_work(bsz, t, di, n, u.element_size()))
+        return tuple(x.new_empty(x.shape) for x in (u, dt, a, b_t, c_t))
     if u.device.type == "cpu":
         return selective_scan_bwd_plain(u, dt, a, b_t, c_t, dy, dstate=dstate,
                                         chunk=chunk)

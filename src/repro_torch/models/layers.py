@@ -4,8 +4,9 @@
 Port of ``repro/models/layers.py``.  Layers take and return tensors in the
 JAX package's ``[B, T, H, D]`` layout, so each function compares with its
 counterpart on the same inputs.  The reference's ``shard(...)``
-annotations are left out: on one card they do nothing, and multi-card
-training's layout is ROADMAP queue 1, item 16.
+annotations are left out: the port has no SPMD partitioner, and the
+multi-rank trainer lays out the weights and splits the batch itself
+(:mod:`repro_torch.parallel.fsdp`).
 
 Prefill and training attention (:func:`attention_chunked`) runs the
 hand-written flash kernel on the card, with its hand-written backward

@@ -115,7 +115,10 @@ def fold_in(key, data: int) -> int:
 
 def generator(key, device: torch.device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` from an int seed, or ``key``
-    itself when it already is a generator on that device."""
+    itself when it already is a generator on that device; None on
+    ``meta``, where shapes are traced and nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return None     # a meta tensor holds no numbers to draw
     if isinstance(key, torch.Generator):
         if torch.device(key.device).type != torch.device(device).type:
             raise ValueError(

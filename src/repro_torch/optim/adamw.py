@@ -30,6 +30,10 @@ class AdamWState(NamedTuple):
     step: torch.Tensor          # int32, 0-d, on the parameters' device
     mu: dict
     nu: dict
+    # the error-feedback residuals of a ``compress_pod`` step, by name (see
+    # ``repro_torch.train.step``); empty otherwise.  The update carries
+    # them through; the step replaces the dict, never mutates it
+    feedback: dict = {}
 
 
 def _named(tree: Tree) -> dict:
@@ -72,11 +76,17 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Union[Mapping[str, torch.Tensor],
                                   Sequence[torch.Tensor]],
-               state: AdamWState, params: Tree, lr):
+               state: AdamWState, params: Tree, lr,
+               gnorm: Optional[torch.Tensor] = None):
+        """``gnorm``, when given, is the gradients' global norm as the
+        caller computed it (a rank that holds slices of the gradients
+        reduces their squares over the ranks first); else
+        :func:`global_norm` of ``grads``."""
         named = _named(params)
         if not isinstance(grads, Mapping):
             grads = dict(zip(named, grads, strict=True))
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         else:
@@ -103,7 +113,7 @@ class AdamW:
                 pp.copy_(p32 - lr * delta)
                 mu.copy_(m32)
                 nu.copy_(n32)
-        return params, AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm
+        return params, state._replace(step=step), gnorm
 
 
 # elements a weight's update takes at a time: its fp32 temporaries (about

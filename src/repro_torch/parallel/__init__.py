@@ -4,9 +4,10 @@
 and :func:`~.compat.shard_map`, the port's stand-ins for
 ``jax.sharding.Mesh``, ``jax.make_mesh`` and the ``shard_map`` shim that
 the sharded runner (:mod:`repro_torch.mpc.secure_matmul`) uses.  The
-training-side modules (``sharding.py``, ``compressed.py``) come with
-multi-card training (ROADMAP queue 1, item 16): the one-card trainer
-(:mod:`repro_torch.train.step`) uses neither.
+training side: :mod:`.sharding` (the reference's logical-axis rules and
+parameter specs), :mod:`.compressed` (the int8 gradient reduction with
+error feedback) and :mod:`.fsdp` (how one rank of the multi-rank trainer
+holds and reduces its leaves by those specs, over ``torch.distributed``).
 """
 from .compat import Mesh, make_mesh, shard_map
 

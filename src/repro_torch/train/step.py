@@ -6,15 +6,23 @@ Port of ``repro/train/step.py`` for one card.  ``make_train_step`` returns
 as the reference's does; the step updates the weights and the optimizer's
 moments in place (see :mod:`repro_torch.optim.adamw`) and returns the same
 objects.  ``metrics`` holds ``loss``, ``lr`` and ``gnorm`` as 0-d device
-tensors: nothing in the step waits for the card.  The reference's
-inter-pod int8 gradient compression (``parallel/compressed.py``) belongs
-to multi-card training, ROADMAP queue 1, item 16; its step does not call
-it either.
+tensors: nothing in the step waits for the card.
+
+With ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` over ``("pod",
+"data", "model")``, :func:`repro_torch.launch.mesh.process_mesh`) the
+same step runs on every rank on that rank's rows, with the parameters
+laid out and the gradients reduced as
+:class:`repro_torch.parallel.fsdp.Layout` says: FSDP over ``data``, the
+mean over every rank before AdamW, and with ``compress_pod`` the int8
+error-feedback reduction over ``pod`` (``parallel/compressed.py``) that
+the reference names as its inter-pod option, its residuals carried in
+``opt_state.feedback`` (so a checkpoint holds them).  Without a mesh it
+is the one-card step, untouched.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -22,6 +30,7 @@ from ..models.api import get_model
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamW, AdamWState
 from ..optim.schedule import wsd
+from ..parallel.fsdp import Layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +63,15 @@ ARCH_TRAIN_OVERRIDES = {
 }
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
+                    compress_pod: bool = False) -> Callable:
     model = get_model(cfg)
     opt = make_optimizer(tc)
+    layout = None
+    if mesh is not None:
+        layout = Layout.for_config(cfg, mesh, compress_pod=compress_pod)
+    elif compress_pod:
+        raise ValueError("compress_pod needs a mesh with a 'pod' axis")
 
     def loss_of(params, batch):
         return model.loss_fn(
@@ -69,9 +84,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         return loss, [torch.zeros_like(w) if g is None else g
                       for w, g in zip(weights, grads, strict=True)]
 
-    def train_step(params, opt_state: AdamWState, batch):
-        named = dict(params.named_parameters())
-        names, weights = list(named), list(named.values())
+    def loss_and_grads(params, batch, weights):
         mb = tc.microbatches
         if mb > 1:
             # the reference's scan over microbatches: fp32 sums of the
@@ -86,26 +99,49 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
                 loss = loss + part.detach()
                 for a, g in zip(acc, grads, strict=True):
                     a.add_(g)
-            loss = loss / mb
             # in place: a second fp32 copy of every gradient would not fit
             # beside jamba's weights and moments on one card
-            grads = [a.div_(mb) for a in acc]
-        else:
-            loss, grads = grads_of(params, batch, weights)
-            loss = loss.detach()
+            return loss / mb, [a.div_(mb) for a in acc]
+        loss, grads = grads_of(params, batch, weights)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state: AdamWState, batch):
+        gnorm = None
+        if layout is not None:
+            layout.unshard_(params)
+        named = dict(params.named_parameters())
+        names, weights = list(named), list(named.values())
+        loss, grads = loss_and_grads(params, batch, weights)
+        feedback = opt_state.feedback
+        if layout is not None:
+            layout.reshard_(params)
+            grads, loss, feedback = layout.reduce(names, grads, loss,
+                                                  feedback)
+            gnorm = layout.global_norm(names, grads)
         lr = wsd(opt_state.step, peak_lr=tc.peak_lr, warmup=tc.warmup,
                  stable=tc.stable, decay=tc.decay, floor=tc.peak_lr * 0.1)
-        params, opt_state, gnorm = opt.update(dict(zip(names, grads, strict=True)),
-                                              opt_state, params, lr)
+        params, opt_state, gnorm = opt.update(
+            dict(zip(names, grads, strict=True)),
+            opt_state._replace(feedback=feedback), params, lr, gnorm=gnorm)
         return params, opt_state, {"loss": loss, "lr": lr, "gnorm": gnorm}
 
+    train_step.layout = layout
     return train_step
 
 
-def init_train_state(cfg: ModelConfig, tc: TrainConfig, key, *, device):
+def init_train_state(cfg: ModelConfig, tc: TrainConfig, key, *, device,
+                     layout: Optional[Layout] = None):
     """Trainable weights drawn from ``key`` (an int seed or a
-    ``torch.Generator``) on ``device``, and the optimizer's zero state."""
+    ``torch.Generator``) on ``device``, and the optimizer's zero state.
+    With ``layout`` (a multi-rank step's ``train_step.layout``) every rank
+    draws the whole weights from the same seed and keeps its slices, and
+    the moments take the slices' shapes; a ``compress_pod`` layout's
+    residuals start at zero in ``opt_state.feedback``."""
     model = get_model(cfg)
     params = model.init_params(cfg, key, device=device).requires_grad_(True)
+    if layout is not None:
+        layout.shard_(params)
     opt_state = make_optimizer(tc).init(params)
+    if layout is not None:
+        opt_state = opt_state._replace(feedback=layout.zero_feedback(params))
     return params, opt_state

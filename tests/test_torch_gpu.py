@@ -46,6 +46,13 @@ running under autograd, and reduced rwkv and jamba train steps on the card
 against the CPU's.  The selective scan's ``tma`` and
 ``simple`` instances on the same operands.
 
+Several ranks: one NCCL rank equals the one-card trainer bit for
+bit; two gloo ranks on the one card (FSDP over ``data = 2``) equal one
+rank with 2 microbatches within 1e-6; ``compress_pod`` keeps
+``compressed_psum``'s guarantees on CUDA tensors, read from the trainer's
+own reductions (both through ``tools/multicard_train.py``, the harness
+``chip_smoke.py`` shares); no wrapper launches on a ``meta`` tensor.
+
 Every mod-p kernel on all-(p-1) operands at the edge of the overflow
 obligation that certifies it (``repro_torch.analysis.overflow``), equal to
 the closed form; ``python -m repro_torch.launch.serve`` on the card at a
@@ -1710,6 +1717,127 @@ def test_gpu_train_step_matches_the_cpu(cuda):
     leaves += [(pg["layers"][n], pc["layers"][n]) for n in pc["layers"]]
     for got, want in leaves:
         assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+# ------------------------------------------------- several ranks on the card
+def _rank_tc(microbatches=1, lr=1e-2):
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(peak_lr=lr, warmup=0, seq_chunk=32,
+                       microbatches=microbatches)
+
+
+def _harness():
+    """``tools/multicard_train.py``: the multi-rank harness that
+    ``chip_smoke.py`` and the CPU tests share."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import multicard_train
+
+    return multicard_train
+
+
+@pytest.mark.gpu
+def test_gpu_one_nccl_rank_equals_the_one_card_trainer(cuda, tmp_path):
+    """Reduced llama3.2-1b in fp32, 3 steps: one rank of NCCL on a
+    ``data = 1`` process mesh (every gradient and the loss all-gathered,
+    a real NCCL launch each) gives the one-card trainer's losses and
+    weights bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import process_mesh
+    from repro_torch.launch.train import init_ranks, train_loop
+    from repro_torch.parallel import fsdp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("llama3.2-1b"))
+    kw = dict(steps=3, global_batch=4, seq_len=32, ckpt_dir=None, device=cuda)
+    p1, _, l1 = train_loop(cfg, _rank_tc(), **kw)
+    init_ranks(0, 1, device="cuda", backend=None,
+               init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        assert dist.get_backend() == "nccl"
+        fsdp.reset_stats()
+        p2, _, l2 = train_loop(cfg, _rank_tc(), mesh=process_mesh(
+            (1,), ("data",), device="cuda"), **kw)
+        calls = dict(fsdp.STATS["calls"])
+    finally:
+        dist.destroy_process_group()
+    assert l1 == l2
+    n = sum(1 for _ in p1.parameters())
+    assert calls == {"all_gather": 3 * (n + 1)}
+    for a, b in zip(p1.parameters(), p2.parameters(), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_two_ranks_on_one_card_equal_microbatches(cuda):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), FSDP over ``data = 2``: the losses and every weight of one
+    rank with 2 microbatches on the whole batch, within 1e-6 relative."""
+    mc = _harness()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("llama3.2-1b"))
+    job = dict(cfg=cfg, tc=_rank_tc(), device="cuda", backend="gloo",
+               steps=3, batch=4, seq=32, repeat=False)
+    got = mc.spawn(**job, shape=(2,), axes=("data",))
+    assert got["backend"] == "gloo" and len(got["split"]) > 0
+    ref = mc.one_rank(cfg, _rank_tc(2), device=cuda, steps=3, batch=4,
+                      seq=32, repeat=False)
+    cmp = mc.compare(got, ref)
+    assert cmp["loss_diff"] <= 1e-6 and cmp["weight_diff"] <= 1e-6, cmp
+
+
+@pytest.mark.gpu
+def test_gpu_compress_pod_on_the_card(cuda):
+    """Two gloo ranks on the one card over ``pod = 2``: the trainer's own
+    reductions on CUDA tensors keep ``compressed_psum``'s guarantees at
+    every step (residuals fed back from the state, exact; every element
+    within ``scale / 2`` of the mean), and training with ``compress_pod``
+    on a repeated batch lowers the loss."""
+    mc = _harness()
+    cfg = reduced(get_config("llama3.2-1b"))
+    got = mc.spawn(cfg=cfg, tc=_rank_tc(lr=1e-3), device="cuda",
+                   backend="gloo", steps=3, batch=4, seq=32, shape=(2,),
+                   axes=("pod",), compress=True)
+    assert got["report"]["ok"], got["report"]
+    assert got["losses"][-1] < got["losses"][0]
+
+
+@pytest.mark.gpu
+def test_gpu_meta_branches_launch_nothing(cuda):
+    """With a card present, every wrapper on ``meta`` tensors returns
+    shapes and launches nothing: every counter stays 0."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    reset_launch_counts()
+    q, k = meta(1, 128, 4, 64), meta(1, 128, 2, 64)
+    o = flash_attention(q, k, k)
+    flash_attention_bwd(q, k, k, o, o, meta(1, 4, 128, dtype=torch.float32))
+    r = meta(1, 64, 2, 64)
+    rwkv6(r, r, r, r, meta(2, 64, dtype=torch.float32))
+    rwkv6_bwd(r, r, r, r, meta(2, 64, dtype=torch.float32),
+              meta(1, 64, 2, 64, dtype=torch.float32))
+    u, bt, a = meta(1, 64, 32), meta(1, 64, 16), meta(32, 16, dtype=torch.float32)
+    selective_scan(u, u, a, bt, bt)
+    selective_scan_bwd(u, u, a, bt, bt, meta(1, 64, 32, dtype=torch.float32))
+    i64 = torch.int64
+    modmatmul_batched(meta(2, 64, 8, dtype=i64), meta(2, 8, 64, dtype=i64),
+                      p=2**31 - 1)
+    modmatmul(meta(64, 8, dtype=i64), meta(8, 64, dtype=i64), p=2**31 - 1)
+    polyeval(meta(4, 3, dtype=i64), meta(3, 16, dtype=i64), p=2**31 - 1)
+    ring_fold(meta(8, dtype=torch.int32), meta(8, dtype=torch.int32),
+              p=2**31 - 1)
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in launch_counts().values()), launch_counts()
 
 
 # ----------------------------------------- the choosers, on the CPU (no card)

@@ -196,5 +196,9 @@ def test_wrapper_refuses_bad_operands():
     with pytest.raises(ShapeContractError):
         rwkv6(r, k, v, w, u, state0=torch.zeros((1, 2, 16, 16),
                                                 dtype=torch.float64))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rwkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+    # meta tensors take the dry-run's branch: shapes, no launch, no plain
+    # version
+    out, state = rwkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+    assert out.device.type == state.device.type == "meta"
+    assert out.shape == (1, 4, 2, 16) and state.shape == (1, 2, 16, 16)
+    assert out.dtype == state.dtype == torch.float32
