@@ -2693,17 +2693,13 @@ def multirank_phase(torch, np, dev, seed, card):
             f"(b) FSDP on {f['backend']}, split leaves {f['split']}")
     cmp = mc.compare(f, ref)
     f_ms = mc.steady_ms(f["history"])
-    coll_ms = 1e3 * f["coll_s"] / RANK_STEPS
-    coll_share = f["coll_s"] / sum(h["s"] for h in f["history"])
     print(f"  (b) FSDP: {len(f['split'])} leaves split over data; losses "
           f"{f['losses']} against one rank's {ref['losses']}: largest "
           f"relative difference {cmp['loss_diff']:.3e}; weights: "
           f"{cmp['bit_equal_leaves']} of {cmp['leaves']} leaves bit-equal, "
           f"largest relative Frobenius difference {cmp['weight_diff']:.3e} "
           f"(the check: {RANK_TOL}); rank 0: {f_ms:.1f} ms per step over "
-          f"steps 1..{RANK_STEPS - 1}; gloo's collectives {coll_ms:.1f} ms a "
-          f"step on the host, {100 * coll_share:.1f} % of the {RANK_STEPS} "
-          f"steps' time ({f['calls']}); peak memory "
+          f"steps 1..{RANK_STEPS - 1}; collectives {f['calls']}; peak memory "
           f"{f['peak'] / 2**30:.2f} GiB a rank; the one-rank reference "
           f"{1e3 * ref['s'] / RANK_STEPS:.1f} ms a step (step 0's set-up "
           f"included); {f['wall_s']:.1f} s wall with the spawn ({card})",
@@ -2729,8 +2725,7 @@ def multirank_phase(torch, np, dev, seed, card):
                          "weight_diff": cmp["weight_diff"],
                          "bit_equal_leaves": cmp["bit_equal_leaves"],
                          "split_leaves": len(f["split"]), "step_ms": f_ms,
-                         "gloo_ms_per_step": coll_ms,
-                         "gloo_share": coll_share, "calls": f["calls"],
+                         "calls": f["calls"],
                          "peak_gib": f["peak"] / 2**30},
                 "compress": {"losses": c["losses"], "report": rep,
                              "calls": c["calls"]}}

@@ -28,6 +28,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import spans
 from ..mpc.field import generator
 from .config import ModelConfig
 from .layers import (
@@ -196,6 +197,7 @@ def _embed(params: Transformer, tokens, embeds):
     return x, positions
 
 
+@spans.spanned("model.layers")
 def run_layers(cfg: ModelConfig, body, x, layers):
     """``x, aux = body(x, aux, layer)`` over ``layers``, under ``cfg.remat``
     as the reference's scan: each layer rematerialized and, with
@@ -269,6 +271,7 @@ def logits_fn(cfg: ModelConfig, params: Transformer,
     return out
 
 
+@spans.spanned("model.loss")
 def chunked_xent(cfg: ModelConfig, params, hidden: torch.Tensor,
                  targets: torch.Tensor, seq_chunk: int, logits) -> torch.Tensor:
     """Mean next-token cross entropy of ``hidden [B, T, D]`` against

@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from .errors import MaskShapeError, QuorumError
 from .field import DEFAULT_FIELD, Field, fold_in, resolve_device
 from .planner import PlanKey, ProtocolPlan, _resolve_code, get_plan
@@ -321,6 +322,13 @@ class _Request:
     raw: Optional[Dict[str, Any]] = None
 
 
+def _describe(sp, ops: List[BlockOp]) -> None:
+    """Give the ``mpc.call`` span ``sp`` the blocks the call issues and
+    their side (0 when it issues none); nothing is built with spans off."""
+    if spans.enabled():
+        sp.set(blocks=len(ops), m=ops[0].proto.plan.m if ops else 0)
+
+
 # ================================================================= session
 class MPCSession:
     """One verb set over a backend, on one device (obtain via
@@ -423,17 +431,19 @@ class MPCSession:
         decode mask applied to every block; ``m`` overrides the block side.
         Returns a tensor on the session's device.
         """
-        req = self._build_request(a, b, key=key, survivors=survivors,
-                                  encoded=encoded, m=m)
-        outs = []
-        if req.ops:
-            outs = self.backend.run_blocks(self._serve_ops(req.ops))
-            self.stats["flushes"] += 1   # one backend dispatch round
-            self._absorb_byzantine()
-        for out in outs:
-            if isinstance(out, BlockFailure):
-                raise QuorumError(out.reason)
-        return req.build(outs)
+        with spans.span("mpc.call") as sp:
+            req = self._build_request(a, b, key=key, survivors=survivors,
+                                      encoded=encoded, m=m)
+            _describe(sp, req.ops)
+            outs = []
+            if req.ops:
+                outs = self.backend.run_blocks(self._serve_ops(req.ops))
+                self.stats["flushes"] += 1   # one backend dispatch round
+                self._absorb_byzantine()
+            for out in outs:
+                if isinstance(out, BlockFailure):
+                    raise QuorumError(out.reason)
+            return req.build(outs)
 
     # ----------------------------------------------------- submit / flush
     def submit(self, a, b, *, key=None,
@@ -459,29 +469,32 @@ class MPCSession:
         re-tune prefers another block side, queued requests are tiled
         again at the new optimum first (``stats["retiles"]``).
         """
-        self._maybe_retile()
-        queue, self._pending = self._pending, []
-        self.failures = {}
-        ops: List[BlockOp] = []
-        for req in queue:
-            ops.extend(req.ops)
-        outs = []
-        if ops:
-            outs = self.backend.run_blocks(self._serve_ops(ops))
-            self.stats["flushes"] += 1   # one backend dispatch round
-            self._absorb_byzantine()
+        with spans.span("mpc.call") as sp:
+            self._maybe_retile()
+            queue, self._pending = self._pending, []
+            self.failures = {}
+            ops: List[BlockOp] = []
+            for req in queue:
+                ops.extend(req.ops)
+            _describe(sp, ops)
+            outs = []
+            if ops:
+                outs = self.backend.run_blocks(self._serve_ops(ops))
+                self.stats["flushes"] += 1   # one backend dispatch round
+                self._absorb_byzantine()
 
-        results: Dict[int, torch.Tensor] = {}
-        pos = 0
-        for req in queue:
-            chunk = outs[pos: pos + len(req.ops)]
-            pos += len(req.ops)
-            bad = next((o for o in chunk if isinstance(o, BlockFailure)), None)
-            if bad is not None:
-                self.failures[req.rid] = bad.reason
-                continue
-            results[req.rid] = req.build(chunk)
-        return results
+            results: Dict[int, torch.Tensor] = {}
+            pos = 0
+            for req in queue:
+                chunk = outs[pos: pos + len(req.ops)]
+                pos += len(req.ops)
+                bad = next((o for o in chunk if isinstance(o, BlockFailure)),
+                           None)
+                if bad is not None:
+                    self.failures[req.rid] = bad.reason
+                    continue
+                results[req.rid] = req.build(chunk)
+            return results
 
     # ------------------------------------------------------- replan drain
     def _maybe_retile(self) -> None:
@@ -532,6 +545,7 @@ class MPCSession:
                 encoded=raw["encoded"], m=None, rid=req.rid))
 
     # -------------------------------------------------- request construction
+    @spans.spanned("mpc.request")
     def _build_request(self, a, b, *, key, survivors, encoded,
                        m, rid: Optional[int] = None) -> _Request:
         f = self.spec.field
@@ -644,6 +658,7 @@ class MPCSession:
 
         n_pieces = len(pieces)
 
+        @spans.spanned("mpc.build")
         def build(outs: List[torch.Tensor]) -> torch.Tensor:
             per = tm.n_blocks
             mats = (outs if clean else

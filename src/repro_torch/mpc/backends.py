@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Sequence, Union
 
+from .. import spans
 from .api import BlockFailure, BlockOp
 from .errors import QuorumError
 from .field import resolve_device
@@ -126,16 +127,17 @@ class LocalBackend(MPCBackend):
 
     def run_blocks(self, ops: Sequence[BlockOp]) -> List[BlockResult]:
         outs: List[BlockResult] = []
-        for op in ops:
-            try:
-                if op.proto.adversaries:
-                    outs.append(self._run_verified(op))
-                else:
-                    outs.append(op.proto.run(op.a, op.b, op.key,
-                                             survivors=op.survivors,
-                                             mode=self.mode))
-            except QuorumError as e:  # below quorum or budget: isolate
-                outs.append(BlockFailure(str(e)))
+        for i, op in enumerate(ops):
+            with spans.span("mpc.block", index=i):
+                try:
+                    if op.proto.adversaries:
+                        outs.append(self._run_verified(op))
+                    else:
+                        outs.append(op.proto.run(op.a, op.b, op.key,
+                                                 survivors=op.survivors,
+                                                 mode=self.mode))
+                except QuorumError as e:  # below quorum or budget: isolate
+                    outs.append(BlockFailure(str(e)))
         return outs
 
 

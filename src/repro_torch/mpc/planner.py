@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.age import AGECode, GeneralizedPolyCode, optimal_age_code, polydot_code
 from ..kernels import modmatmul as _kmm
 from ..kernels import polyeval as _kpe
@@ -109,6 +110,9 @@ class ProtocolStages:
     stages of :meth:`ProtocolPlan.batched` are built from them.
 
     ``device`` is where the stages run; :meth:`timed` fences on it.
+    ``encode``, ``worker_compute``, ``exchange`` and ``decode`` each run
+    inside a span ``mpc.<stage>`` (:mod:`repro_torch.spans`), so the
+    compositions and the timed copies carry them too.
 
     On a CUDA device every product is a kernel launch: ``worker_compute``
     goes to ``modmatmul_batched``, the skinny-K table products of
@@ -209,6 +213,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
     def table_mm(v, x):
         return _kpe.polyeval(v, x.contiguous(), p=p)
 
+    @spans.spanned("mpc.encode")
     def encode(a, b, gen, *, secrets=None):
         lead = tuple(a.shape[:-2])           # () or (B,): the wave's lanes
         if secrets is None:
@@ -228,6 +233,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
         f_b = table_mm(vb, terms_b).reshape(lead + (n, ms, mt))
         return f_a, f_b
 
+    @spans.spanned("mpc.worker_compute")
     def worker_compute(f_a, f_b):
         # any leading shape: all N workers, a wave's lanes, or one remote
         # worker's [1, m/t, m/s] slice
@@ -235,6 +241,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
                                    f_b.reshape(-1, ms, mt).contiguous(), p=p)
         return h.reshape(tuple(f_a.shape[:-1]) + (mt,))
 
+    @spans.spanned("mpc.exchange")
     def exchange(h, gen, *, mask_sum=None):
         lead = tuple(h.shape[:-3])
         mask_sum = (field.random(gen, (z, mt, mt)) if mask_sum is None
@@ -246,6 +253,7 @@ def _build_stages(plan: "ProtocolPlan", device: torch.device) -> ProtocolStages:
                   mask_sum.reshape(lead + (z, mt * mt)).contiguous()), p=p)
         return i_pts.reshape(lead + (n, mt, mt))
 
+    @spans.spanned("mpc.decode")
     def decode(i_pts, idx, rows):
         # the survivors' rows, gathered by the kernel
         lead = tuple(i_pts.shape[:-3])

@@ -23,6 +23,8 @@ from typing import Mapping, NamedTuple, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from .. import spans
+
 Tree = Union[nn.Module, Mapping[str, torch.Tensor]]
 
 
@@ -85,34 +87,36 @@ class AdamW:
         named = _named(params)
         if not isinstance(grads, Mapping):
             grads = dict(zip(named, grads, strict=True))
-        if gnorm is None:
-            gnorm = global_norm(grads)
-        if self.clip_norm is not None:
-            scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-        else:
-            scale = None
-        step = state.step + 1
-        stepf = step.to(torch.float32)
-        b1c = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
-                                         device=stepf.device), stepf)
-        b2c = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
-                                         device=stepf.device), stepf)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
-        for name, p in named.items():
-            for pp, g, mu, nu in _pieces(p, grads[name], state.mu[name],
-                                         state.nu[name]):
-                g32 = g.to(torch.float32)
-                if scale is not None:
-                    g32 = g32 * scale
-                m32 = self.b1 * mu.to(torch.float32) + (1 - self.b1) * g32
-                n32 = (self.b2 * nu.to(torch.float32)
-                       + (1 - self.b2) * g32 * g32)
-                delta = (m32 / b1c) / (torch.sqrt(n32 / b2c) + self.eps)
-                p32 = pp.to(torch.float32)
-                delta = delta + self.weight_decay * p32
-                pp.copy_(p32 - lr * delta)
-                mu.copy_(m32)
-                nu.copy_(n32)
+        with spans.span("optim.clip_norm"):
+            if gnorm is None:
+                gnorm = global_norm(grads)
+            if self.clip_norm is not None:
+                scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+            else:
+                scale = None
+        with spans.span("optim.adamw"):
+            step = state.step + 1
+            stepf = step.to(torch.float32)
+            b1c = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
+                                             device=stepf.device), stepf)
+            b2c = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
+                                             device=stepf.device), stepf)
+            lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
+            for name, p in named.items():
+                for pp, g, mu, nu in _pieces(p, grads[name], state.mu[name],
+                                             state.nu[name]):
+                    g32 = g.to(torch.float32)
+                    if scale is not None:
+                        g32 = g32 * scale
+                    m32 = self.b1 * mu.to(torch.float32) + (1 - self.b1) * g32
+                    n32 = (self.b2 * nu.to(torch.float32)
+                           + (1 - self.b2) * g32 * g32)
+                    delta = (m32 / b1c) / (torch.sqrt(n32 / b2c) + self.eps)
+                    p32 = pp.to(torch.float32)
+                    delta = delta + self.weight_decay * p32
+                    pp.copy_(p32 - lr * delta)
+                    mu.copy_(m32)
+                    nu.copy_(n32)
         return params, state._replace(step=step), gnorm
 
 

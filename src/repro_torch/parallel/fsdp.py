@@ -33,7 +33,6 @@ dry-run reports it (:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
-import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -41,27 +40,26 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import spans
 from .compressed import compressed_psum
 from .sharding import infer_param_specs, mesh_shape
 
 _ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _a2a = dist.all_to_all_single
 
-#: the collectives every layout of this process has called, by kind, and
-#: the host's seconds inside them (on gloo a call returns when its data
-#: has moved; on NCCL when it is queued)
-STATS = {"calls": Counter(), "s": 0.0}
+#: the collectives every layout of this process has called, by kind
+STATS = {"calls": Counter()}
 
 
 def reset_stats() -> None:
     STATS["calls"] = Counter()
-    STATS["s"] = 0.0
 
 
-def _timed(kind: str, fn, *args, **kw):
-    t0 = time.perf_counter()
-    out = fn(*args, **kw)
-    STATS["s"] += time.perf_counter() - t0
+def _collective(kind: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, one collective, inside the span ``fsdp.<kind>``
+    and counted in :data:`STATS`."""
+    with spans.span("fsdp." + kind):
+        out = fn(*args, **kw)
     STATS["calls"][kind] += 1
     return out
 
@@ -175,7 +173,7 @@ class Layout:
             return part
         moved = part.movedim(dim, 0).contiguous()
         full = moved.new_empty((moved.shape[0] * self.data, *moved.shape[1:]))
-        _timed("all_gather", _ag, full, moved, group=self.data_group)
+        _collective("all_gather", _ag, full, moved, group=self.data_group)
         return full.movedim(0, dim).contiguous()
 
     @staticmethod
@@ -237,7 +235,8 @@ class Layout:
         if n == 1 and group is None:
             return x[None]
         flat = x.new_empty((n * x.numel(),))
-        _timed("all_gather", _ag, flat, x.reshape(-1).contiguous(), group=group)
+        _collective("all_gather", _ag, flat, x.reshape(-1).contiguous(),
+                    group=group)
         return flat.view(n, *x.shape)
 
     def _slices(self, moved: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -250,7 +249,7 @@ class Layout:
         if n == 1 and group is None:
             return send
         recv = torch.empty_like(send)
-        _timed("all_to_all", _a2a, recv, send, group=group)
+        _collective("all_to_all", _a2a, recv, send, group=group)
         return recv
 
     def reduce(self, names: Sequence[str], grads: List[torch.Tensor],
@@ -283,7 +282,7 @@ class Layout:
             for g in out.values():
                 g.div_(self.data)
             stages = {} if self.probe is not None else None
-            out, feedback = _timed(
+            out, feedback = _collective(
                 "compressed_psum", compressed_psum, out, self.mesh,
                 feedback or None, axis="pod", stages=stages)
             if stages is not None:

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import spans
 from ..models.api import get_model
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamW, AdamWState
@@ -78,51 +79,68 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
             cfg, params, batch["tokens"], batch["targets"],
             seq_chunk=tc.seq_chunk, embeds=batch.get("embeds"))
 
-    def grads_of(params, batch, weights):
-        loss = loss_of(params, batch)
-        grads = torch.autograd.grad(loss, weights, allow_unused=True)
-        return loss, [torch.zeros_like(w) if g is None else g
-                      for w, g in zip(weights, grads, strict=True)]
-
-    def loss_and_grads(params, batch, weights):
-        mb = tc.microbatches
-        if mb > 1:
-            # the reference's scan over microbatches: fp32 sums of the
-            # losses and the gradients, then their means
-            loss = torch.zeros((), dtype=torch.float32, device=weights[0].device)
-            acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-                   for w in weights]
-            for i in range(mb):
-                micro = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+    def forward(params, batch, i):
+        """Microbatch ``i``'s loss, sliced from the batch inside its span."""
+        with spans.span("train.forward", micro=i):
+            mb = tc.microbatches
+            if mb > 1:
+                batch = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
                          for k, v in batch.items()}
-                part, grads = grads_of(params, micro, weights)
+            return loss_of(params, batch)
+
+    def grads_of(loss, weights):
+        grads = torch.autograd.grad(loss, weights, allow_unused=True)
+        return [torch.zeros_like(w) if g is None else g
+                for w, g in zip(weights, grads, strict=True)]
+
+    def loss_and_grads(params, batch):
+        """The mean loss, the weights' names and their gradients.  Every
+        host step between the forward passes runs inside a backward span:
+        the weights' listing and, over several microbatches (the
+        reference's scan: fp32 sums of the losses and the gradients, then
+        their means), the sums' set-up and the means."""
+        mb = tc.microbatches
+        for i in range(mb):
+            part = forward(params, batch, i)
+            with spans.span("train.backward", micro=i):
+                if i == 0:
+                    named = dict(params.named_parameters())
+                    names, weights = list(named), list(named.values())
+                    if mb == 1:
+                        return part.detach(), names, grads_of(part, weights)
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=weights[0].device)
+                    acc = [torch.zeros(w.shape, dtype=torch.float32,
+                                       device=w.device) for w in weights]
+                grads = grads_of(part, weights)
                 loss = loss + part.detach()
                 for a, g in zip(acc, grads, strict=True):
                     a.add_(g)
-            # in place: a second fp32 copy of every gradient would not fit
-            # beside jamba's weights and moments on one card
-            return loss / mb, [a.div_(mb) for a in acc]
-        loss, grads = grads_of(params, batch, weights)
-        return loss.detach(), grads
+                if i == mb - 1:
+                    del grads    # their frees, too, belong to the backward
+                    # in place: a second fp32 copy of every gradient would
+                    # not fit beside jamba's weights and moments on one card
+                    return loss / mb, names, [a.div_(mb) for a in acc]
 
+    @spans.spanned("train.step")
     def train_step(params, opt_state: AdamWState, batch):
         gnorm = None
         if layout is not None:
             layout.unshard_(params)
-        named = dict(params.named_parameters())
-        names, weights = list(named), list(named.values())
-        loss, grads = loss_and_grads(params, batch, weights)
+        loss, names, grads = loss_and_grads(params, batch)
         feedback = opt_state.feedback
         if layout is not None:
             layout.reshard_(params)
             grads, loss, feedback = layout.reduce(names, grads, loss,
                                                   feedback)
             gnorm = layout.global_norm(names, grads)
-        lr = wsd(opt_state.step, peak_lr=tc.peak_lr, warmup=tc.warmup,
-                 stable=tc.stable, decay=tc.decay, floor=tc.peak_lr * 0.1)
-        params, opt_state, gnorm = opt.update(
-            dict(zip(names, grads, strict=True)),
-            opt_state._replace(feedback=feedback), params, lr, gnorm=gnorm)
+        with spans.span("train.optimizer"):
+            lr = wsd(opt_state.step, peak_lr=tc.peak_lr, warmup=tc.warmup,
+                     stable=tc.stable, decay=tc.decay, floor=tc.peak_lr * 0.1)
+            params, opt_state, gnorm = opt.update(
+                dict(zip(names, grads, strict=True)),
+                opt_state._replace(feedback=feedback), params, lr,
+                gnorm=gnorm)
         return params, opt_state, {"loss": loss, "lr": lr, "gnorm": gnorm}
 
     train_step.layout = layout

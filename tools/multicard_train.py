@@ -14,9 +14,10 @@ reduced fp32 config):
 2. ``nproc`` ranks, one a card over NCCL (gloo on the CPU), FSDP over
    ``data = nproc``: the losses and every weight against leg 1 (bit-equal
    leaves, the largest relative Frobenius difference), ms a step (steps
-   1..2, no profiler), the collectives, the host's seconds inside them
-   and, on cards, the NCCL kernels' device time (``torch.profiler`` on
-   steps 4.., :data:`PROFILE_FROM`; step 0's set-up left out);
+   1..2, no profiler), the collectives and, on cards, the NCCL kernels'
+   device time, whole and by the ``fsdp.<kind>`` span that launched each
+   (``torch.profiler`` and the program's spans on steps 4..,
+   :data:`PROFILE_FROM`; step 0's set-up left out);
 3. leg 2 with the clip norm taken from the slices (:func:`norm_from_slices`:
    one scalar all-reduce of the summed squares in place of the trainer's
    fp32 all-gather of every split gradient): what the trainer's bit
@@ -36,6 +37,8 @@ reference), :func:`compare` and :class:`FeedbackCheck`.
 from __future__ import annotations
 
 import argparse
+import bisect
+import collections
 import contextlib
 import dataclasses
 import json
@@ -175,21 +178,48 @@ def norm_from_slices(layout, names, grads):
     return torch.sqrt(split + whole)
 
 
-def _device_ms(prof):
-    """``(nccl, busy)``: device milliseconds of the profiled kernels whose
-    name holds ``nccl``, and of every kernel (device events only, so a
-    host op is not counted beside the kernels it launched)."""
-    nccl = busy = 0.0
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        busy += t
-        if "nccl" in ev.key.lower():
-            nccl += t
-    return nccl / 1e3, busy / 1e3
+def nccl_by_span(kernels, launch, records, offset) -> dict:
+    """NCCL device ms by the ``fsdp.<kind>`` span open on the host when
+    each kernel was launched.  ``kernels``: ``(correlation id, device
+    ns)``; ``launch``: the profile time (Unix-epoch ns) of the runtime
+    call of each correlation id; ``records``: the program's spans
+    (``perf_counter_ns``), of which the ``fsdp.`` ones are read;
+    ``offset``: ``time_ns - perf_counter_ns``.  ``""`` holds the kernels
+    launched outside every such span or with no runtime call."""
+    ivs = sorted((r.start_ns, r.end_ns, r.name) for r in records
+                 if r.name.startswith("fsdp."))
+    starts = [iv[0] for iv in ivs]
+    out: collections.Counter = collections.Counter()
+    for corr, ns in kernels:
+        name = ""
+        if corr in launch:
+            t = launch[corr] - offset
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= ivs[i][1]:
+                name = ivs[i][2]
+        out[name] += ns / 1e6
+    return dict(out)
+
+
+def _device_ms(prof, records, offset):
+    """``(nccl, busy, by_span)``: device ms of the profiled kernels whose
+    name holds ``nccl``, of every device operation, and the first by
+    :func:`nccl_by_span` (each kernel's runtime call, ``cu*``, found by
+    its correlation id).  The profiler's annotations are left out: each
+    NCCL call's range shows on the device too, under the kernel's name."""
+    kernels, launch, busy = [], {}, 0
+    for e in prof.profiler.kineto_results.events():
+        corr = int(e.correlation_id())
+        if str(e.device_type()).endswith("CUDA"):
+            if e.is_user_annotation():
+                continue
+            busy += int(e.duration_ns())
+            if "nccl" in e.name().lower():
+                kernels.append((corr, int(e.duration_ns())))
+        elif corr and e.name().startswith("cu"):
+            launch.setdefault(corr, int(e.start_ns()))
+    return (sum(ns for _, ns in kernels) / 1e6, busy / 1e6,
+            nccl_by_span(kernels, launch, records, offset))
 
 
 class _Stepping(list):
@@ -208,6 +238,7 @@ class _Stepping(list):
 def _rank(rank, world, init, job, out_path):
     """One rank of :func:`spawn`'s job: join the group, train, gather the
     weights; rank 0 saves what the parent reads."""
+    from repro_torch import spans
     from repro_torch.launch.mesh import process_mesh
     from repro_torch.launch.train import init_ranks, train_loop
     from repro_torch.parallel import fsdp
@@ -233,14 +264,21 @@ def _rank(rank, world, init, job, out_path):
             acts = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            # the profile's clock is Unix-epoch ns, the spans' perf_counter
+            offset = time.time_ns() - time.perf_counter_ns()
+
+            def ready(p):
+                traced.update(zip(
+                    ("nccl_device_ms", "busy_device_ms", "nccl_ms_by_span"),
+                    _device_ms(p, spans.take().records, offset), strict=True))
+
             prof = torch.profiler.profile(
                 activities=acts, schedule=torch.profiler.schedule(
                     wait=PROFILE_FROM - 1, warmup=1,
                     active=job["steps"] - PROFILE_FROM, repeat=1),
-                on_trace_ready=lambda p: traced.update(
-                    zip(("nccl_device_ms", "busy_device_ms"), _device_ms(p),
-                        strict=True)))
+                on_trace_ready=ready)
             history = _Stepping(prof)
+            spans.enable()
         fsdp.reset_stats()
         with prof:
             params, opt_state, losses = train_loop(
@@ -248,11 +286,12 @@ def _rank(rank, world, init, job, out_path):
                 seq_len=job["seq"], ckpt_dir=None, log_every=100,
                 seed=job["seed"], device=dev, data=data, history=history,
                 mesh=mesh, compress_pod=job["compress"], probe=check)
+        spans.disable()
         layout = fsdp.Layout.for_config(cfg, mesh)
         out = {"backend": dist.get_backend(), "losses": losses,
                "history": list(history),
                "calls": dict(fsdp.STATS["calls"]),
-               "coll_s": fsdp.STATS["s"], "split": sorted(layout.dims),
+               "split": sorted(layout.dims),
                "weights": {n: layout.gather(n, p.detach()).cpu()
                            for n, p in params.named_parameters()}}
         if dev.type == "cuda":
@@ -269,10 +308,11 @@ def _rank(rank, world, init, job, out_path):
 def spawn(**job) -> dict:
     """Run one job on ``prod(shape)`` spawned ranks and return rank 0's
     result: ``backend``, ``losses``, ``history`` (``train_loop``'s),
-    ``calls`` and ``coll_s`` (``fsdp.STATS``), ``split`` (the leaves split
+    ``calls`` (``fsdp.STATS``), ``split`` (the leaves split
     over ``data``), ``weights`` (whole, on the host), ``peak`` (bytes, on
-    a card), ``nccl_device_ms`` and ``busy_device_ms`` (with ``profile``:
-    the traced steps', :data:`PROFILE_FROM` on), ``report``
+    a card), ``nccl_device_ms``, ``busy_device_ms`` and
+    ``nccl_ms_by_span`` (:func:`_device_ms`; with ``profile``: the
+    traced steps', :data:`PROFILE_FROM` on), ``report``
     (:class:`FeedbackCheck`'s, with ``compress``) and ``wall_s``.
 
     The job: ``cfg``, ``tc``, ``shape``, ``axes``, ``device`` (ranks on
@@ -400,8 +440,10 @@ def main(argv=None):
             "traced_step_ms": 1e3 * sum(h["s"] for h in hist[PROFILE_FROM:])
             / traced,
             "nccl_device_ms_per_step": got.get("nccl_device_ms", 0) / traced,
+            "nccl_ms_per_step_by_span": {
+                k: v / traced
+                for k, v in got.get("nccl_ms_by_span", {}).items()},
             "busy_device_ms_per_step": got.get("busy_device_ms", 0) / traced,
-            "collective_host_ms_per_step": 1e3 * got["coll_s"] / args.steps,
             "calls": got["calls"], "peak_gib": got.get("peak", 0) / 2**30,
             "wall_s": got["wall_s"]}
     c = spawn(**job, shape=(2, args.nproc // 2), axes=("pod", "data"),
