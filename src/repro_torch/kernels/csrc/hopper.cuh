@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels (flash_attention.cu's and
 // flash_attention_bwd.cu's wgmma instances, modmatmul_tc.cu, polyeval.cu,
-// rwkv6.cu, selective_scan.cu): mbarriers, TMA tile
-// loads and 1-D bulk copies, wgmma shared-memory descriptors and the wgmma
-// instructions the kernels issue, plus the host-side tensor-map encoder.
+// rwkv6.cu, selective_scan.cu): mbarriers, cluster barriers and remote
+// arrivals, TMA tile loads (multicast too) and 1-D bulk copies, ldmatrix,
+// wgmma shared-memory descriptors and the wgmma instructions the kernels
+// issue, plus the host-side tensor-map encoder.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, reached through
 // the CUDA runtime's entry-point lookup (cudaGetDriverEntryPoint, or
@@ -68,6 +69,54 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Thread block clusters.  The CTA's rank in its cluster; a barrier over
+// every thread of the cluster (release, then acquire), which also orders
+// mbarrier initialisation before the peers' first remote arrival or
+// multicast; and an arrival on the mbarrier at the same shared-memory
+// offset in CTA `cta` of the cluster (the caller's own rank included).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Hand registers between warpgroups (every warp of the warpgroup executes
+// it): a producer gives back what it does not need, consumers take it up.
+// ptxas honours it only where the roles split once and never rejoin.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// four 8x8 matrices of 16-bit elements (or 8 x 16 bytes) from shared
+// memory: lanes 8j .. 8j+7 give the row addresses of matrix j, which lands
+// in r[j] (row lane / 4, bytes 4 (lane % 4) .. +3)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
 // TMA tile loads: the box at the given coordinates (innermost first) lands
 // in shared memory at dst, and its bytes count against bar's transaction
 // count.  Elements outside the tensor are filled with zeros.
@@ -79,6 +128,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same box delivered to the same shared-memory offset in every CTA of
+// the cluster named in cta_mask, each completing its own barrier at bar's
+// offset
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(cta_mask),
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -188,8 +254,10 @@ __device__ __forceinline__ void fence_regs(T (&r)[N]) {
 //                 shared memory (scale_d = 0 overwrites D);
 //   bf16_rs_nN:   D[64xN] += A[64x16] (registers) B[16xN], B MN-major in
 //                 shared memory (transposed read);
-//   u8_ss_n32:    D[64x32] += A[64x32] B[32x32], unsigned 8-bit operands
-//                 K-major in shared memory, s32 accumulators.
+//   u8_rs_n32:    D[64x32] += A[64x32] (registers) B[32x32], unsigned 8-bit
+//                 operands, B K-major in shared memory, s32 accumulators; A
+//                 has the mma.sync m16n8k32 A layout per warp, which one
+//                 ldmatrix_x4 of a K-major 16-row, 32-byte tile gives.
 
 __device__ __forceinline__ void wgmma_bf16_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -283,16 +351,16 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_u8_ss_n32(int32_t (&d)[16], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_u8_rs_n32(int32_t (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p;\n}\n"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
       "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
       "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // ----------------------------------------------------------------- host

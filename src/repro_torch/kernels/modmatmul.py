@@ -7,8 +7,11 @@ Pallas kernels, and :func:`choose_instance` picks one from the shapes alone
 before any launch:
 
 * ``tensor_core`` (``csrc/modmatmul_tc.cu``): the product over 8-bit limbs
-  on the int8 tensor cores (wgmma fed by TMA), for every product whose
-  output fills its 64x64 tiles (the main path's ``[17,1024,1024]²``);
+  on the int8 tensor cores (wgmma with A from registers, B by TMA
+  multicast to a 2-CTA cluster; a persistent grid whose walk
+  :func:`tc_grid` sizes and :func:`tc_tiles` spells out), for every
+  product whose output fills its 64x64 tiles (the main path's
+  ``[17,1024,1024]²``);
 * ``skinny`` (``csrc/modmatmul_skinny.cu``): a streaming reduction for an
   output of at most :data:`SKINNY_N` columns (the MAC tags'
   ``[17, 2^20] @ [2^20, 1]``, and a wave's ``[B, 17, 2^20] @ [B, 2^20,
@@ -59,10 +62,14 @@ def modmatmul_plain(a: torch.Tensor, b: torch.Tensor, *, p: int) -> torch.Tensor
 INSTANCES = ("tensor_core", "skinny", "cuda_core")
 
 TC_TILE = 64       # modmatmul_tc.cu's output tile side (BM = BN)
+TC_CLUSTER = 2     # its CTAs a cluster (CLUSTER), side by side along M
 LIMBS = 4          # 8-bit limbs per element: any p < 2^32
 # The longest K-run whose diagonal sums fit the s32 accumulators: a diagonal
 # holds at most 4 limb pairs, and 4·255²·8256 < 2^31 <= 4·255²·8257.
 K_RUN_MAX = 8256
+# The fold reduces once after the diagonals above this one (FOLD_LOW in
+# modmatmul_tc.cu): mod_p(D_6 2^32 + … + D_2) 2^16 + D_1 2^8 + D_0 + R.
+TC_FOLD_LOW = 2
 TILE = 64          # output tile side of one block (BM = BN in modmatmul.cu)
 TILE_K = 32        # K depth staged per shared-memory pass (BK)
 MIN_SPLIT_K = 512  # fewest K rows worth a block of their own
@@ -135,6 +142,40 @@ def choose_instance(w: int, m: int, k: int, n: int) -> str:
     return "cuda_core"
 
 
+def tc_grid(w: int, m: int, n: int, sms: int):
+    """``(clusters, m_pairs, n_tiles)``: the tensor-core instance's grid.
+
+    Its unit of work is one worker's pair of 64-row M-tiles (one a CTA of
+    a :data:`TC_CLUSTER`-CTA cluster; the last pair of an odd count has
+    one) by one 64-column N-tile.  One cluster per pair of the ``sms`` SMs
+    that hold the kernel's clusters at once, or one per unit where there
+    are fewer units; each cluster walks the units
+    :func:`tc_tiles` lists.  A pure function of the shapes and the SMs."""
+    m_pairs = -(-(-(-m // TC_TILE)) // TC_CLUSTER)
+    n_tiles = -(-n // TC_TILE)
+    units = w * m_pairs * n_tiles
+    return max(1, min(units, sms // TC_CLUSTER)), m_pairs, n_tiles
+
+
+def tc_tiles(w: int, m: int, n: int, sms: int):
+    """Yield ``(cta, (worker, m_tile, n_tile))`` for every output tile the
+    tensor-core kernel stores, CTA by CTA in the order each walks them:
+    cluster ``c`` takes units ``c, c + clusters, …`` numbered worker by
+    worker, then N-tile, then M-tile pair, and its CTA ``r`` the pair's
+    M-tile ``2 q + r`` (the kernel's ``unit_at``)."""
+    clusters, m_pairs, n_tiles = tc_grid(w, m, n, sms)
+    m_tiles = -(-m // TC_TILE)
+    units = w * m_pairs * n_tiles
+    for c in range(clusters):
+        for u in range(c, units, clusters):
+            worker, r = divmod(u, m_pairs * n_tiles)
+            n_tile, pair = divmod(r, m_pairs)
+            for rank in range(TC_CLUSTER):
+                m_tile = TC_CLUSTER * pair + rank
+                if m_tile < m_tiles:
+                    yield c * TC_CLUSTER + rank, (worker, m_tile, n_tile)
+
+
 def modmatmul_tc_emulation(a: torch.Tensor, b: torch.Tensor, *, p: int,
                            run: int = K_RUN_MAX) -> torch.Tensor:
     """The tensor-core instance's integer schedule in plain torch.
@@ -142,10 +183,13 @@ def modmatmul_tc_emulation(a: torch.Tensor, b: torch.Tensor, *, p: int,
     Splits every element into four unsigned 8-bit limbs, sums each diagonal
     ``D_d = Σ_{i+j=d} A_i @ B_j`` exactly in int64 over K-runs of ``run``
     products, raises ``OverflowError`` if a run's diagonal would leave the
-    kernel's s32 accumulator (``>= 2^31``), and folds each run by Horner,
-    ``R <- mod_p(R·2^8 + D_d)`` for d = 6 … 0.  Elements may be any value
-    in ``[0, 2^32)``.  The CPU tests hold it to the JAX kernels; the port
-    never calls it.
+    kernel's s32 accumulator (``>= 2^31``), and folds each run by Horner
+    over the diagonals with the kernel's two reductions,
+    ``R <- mod_p(mod_p(D_6·2^32 + … + D_2)·2^16 + D_1·2^8 + D_0 + R)``
+    (:data:`TC_FOLD_LOW`); ``OverflowError`` too if the diagonals' maxima
+    could take the first argument past ``mod_p``'s domain.  Elements may be
+    any value in ``[0, 2^32)``.  The CPU tests hold it to the JAX kernels;
+    the port never calls it.
     """
     a, b = a.to(torch.int64), b.to(torch.int64)
     al = [(a >> (8 * i)) & 0xFF for i in range(LIMBS)]
@@ -155,18 +199,26 @@ def modmatmul_tc_emulation(a: torch.Tensor, b: torch.Tensor, *, p: int,
                       device=a.device)
     for k0 in range(0, k, run):
         cut = slice(k0, k0 + run)
+        where = f"the K-run [{k0}, {min(k, k0 + run)})"
         diag = [torch.zeros_like(out) for _ in range(2 * LIMBS - 1)]
         for i in range(LIMBS):
             for j in range(LIMBS):
                 diag[i + j] += al[i][..., cut] @ bl[j][..., cut, :]
-        top = max(int(d.max()) for d in diag) if out.numel() else 0
-        if top >= 2**31:
-            raise OverflowError(f"a diagonal of the K-run [{k0}, "
-                                f"{min(k, k0 + run)}) reaches {top} >= 2^31")
-        acc = diag[-1]
-        for d in reversed(diag[:-1]):
-            acc = mod_p(acc * 256 + d, p)
-        out = mod_p(out + acc, p)
+        tops = [int(d.max()) if out.numel() else 0 for d in diag]
+        if max(tops) >= 2**31:
+            raise OverflowError(f"a diagonal of {where} reaches {max(tops)} "
+                                f">= 2^31")
+        if sum(t << (8 * (d - TC_FOLD_LOW))
+               for d, t in enumerate(tops) if d >= TC_FOLD_LOW) >= 2**63:
+            raise OverflowError(f"the high diagonals of {where} may leave "
+                                f"mod_p's domain (2^63)")
+        high = diag[-1]
+        for d in reversed(diag[TC_FOLD_LOW:-1]):
+            high = high * 256 + d
+        acc = mod_p(high, p)
+        for d in reversed(diag[:TC_FOLD_LOW]):
+            acc = acc * 256 + d
+        out = mod_p(acc + out, p)
     return out
 
 
@@ -213,12 +265,27 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _lib_tc():
-    fn = _build.load("modmatmul_tc").modmatmul_tc_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    lib = _build.load("modmatmul_tc")
+    fn = lib.modmatmul_tc_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    lib.modmatmul_tc_clusters.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_sms(index: int) -> int:
+    """The SMs the tensor-core kernel's clusters fill at once on card
+    ``index``: :data:`TC_CLUSTER` times the clusters it holds."""
+    with torch.cuda.device(index):
+        clusters = _lib_tc().modmatmul_tc_clusters()
+    if clusters < 1:
+        raise _build.KernelLaunchError(
+            f"modmatmul (tensor_core): the card holds no cluster of the "
+            f"kernel (cudaError_t {-clusters})")
+    return TC_CLUSTER * clusters
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,14 +347,16 @@ def _launch_tensor_core(a: torch.Tensor, b: torch.Tensor, *,
     n = b.shape[2]
     p_, bits, c, n_folds, _ = _build.fold_args(p)
     kp = -(-k // 16) * 16        # limb-plane row stride: TMA wants 16 bytes
+    clusters, _, _ = tc_grid(w, m, n, _tc_sms(a.device.index))
     out = torch.empty((w, m, n), dtype=torch.int64, device=a.device)
     a_limbs = torch.empty((w, LIMBS, m, kp), dtype=torch.uint8, device=a.device)
     b_limbs = torch.empty((w, LIMBS, n, kp), dtype=torch.uint8, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib_tc()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                        a_limbs.data_ptr(), b_limbs.data_ptr(), w, m, k, n, kp,
-                        p_, bits, c, n_folds, stream)
+        err = _lib_tc().modmatmul_tc_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a_limbs.data_ptr(),
+            b_limbs.data_ptr(), w, m, k, n, kp, clusters, p_, bits, c, n_folds,
+            stream)
     _build.check(err, "modmatmul (tensor_core)")
     return out
 

@@ -140,24 +140,31 @@ def test_gpu_modmatmul_kernels_equal_plain(cuda, p):
 
 # (W, M, K, N): the main path's product cut to 128, ragged edges in every
 # dim, one row and column, a K past one 128-byte tile, and K past one s32
-# run (8192) with ragged ends
+# run (8192) with ragged ends; then the persistent walk's edges: one tile
+# (fewer units than SMs), an odd number of M-tiles for the 2-CTA cluster
+# (960 = 15 x 64), unit counts no multiple of 132 / 2, W = 5 (the sharded
+# backend) and W = 34 at the main width, ragged M and N together
 TC_SHAPES = [(17, 128, 128, 128), (3, 33, 65, 17), (2, 1, 7, 1),
-             (4, 64, 3000, 64), (2, 70, 130, 200), (1, 65, 9000, 129)]
+             (4, 64, 3000, 64), (2, 70, 130, 200), (1, 65, 9000, 129),
+             (1, 64, 64, 64), (1, 960, 256, 192), (3, 960, 640, 1000),
+             (7, 100, 300, 700), (5, 1024, 1024, 1024),
+             (34, 1024, 1024, 1024), (5, 1000, 300, 1100)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", PRIMES)
 def test_gpu_modmatmul_tensor_core_equals_plain(cuda, p):
     """The tensor-core instance on every shape, chosen or not: equal to the
-    plain version; the all-(p-1) corner at K = 3000 and at K = 20000 (three
-    s32 runs) equal to the closed form."""
+    plain version; the all-(p-1) corner at K = 3000, at K = 8256 and 8257
+    (either side of the certified run) and at K = 20000 (three s32 runs)
+    equal to the closed form."""
     g = torch.Generator(device=cuda)
     g.manual_seed(p % 997)
     for w, m, k, n in TC_SHAPES:
         a, b = _rand(g, p, (w, m, k)), _rand(g, p, (w, k, n))
         got = mm._launch(a, b, p=p, instance="tensor_core")
         assert torch.equal(got, modmatmul_plain(a, b, p=p)), (w, m, k, n)
-    for k in (3000, 20000):
+    for k in (3000, 8256, 8257, 20000):
         a = torch.full((2, 64, k), p - 1, dtype=torch.int64, device=cuda)
         b = torch.full((2, k, 64), p - 1, dtype=torch.int64, device=cuda)
         got = mm._launch(a, b, p=p, instance="tensor_core")

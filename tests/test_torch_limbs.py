@@ -1,18 +1,20 @@
-"""The tensor-core modmatmul instance's integer schedule, and the kernel
-choosers, on the CPU.
+"""The tensor-core modmatmul instance's integer schedule and its walk over
+the output tiles, and the kernel choosers, on the CPU.
 
 ``modmatmul_tc_emulation`` repeats ``csrc/modmatmul_tc.cu``'s arithmetic in
 plain torch: unsigned 8-bit limbs, each diagonal ``D_d = Σ_{i+j=d} A_i B_j``
 summed exactly over K-runs and checked below 2^31 (the kernel's s32
-accumulator), then the Horner fold ``R <- mod_p(R·2^8 + D_d)``.  It must
+accumulator), then the Horner fold over the diagonals with two reductions,
+``R <- mod_p(mod_p(D_6·2^32 + … + D_2)·2^16 + D_1·2^8 + D_0 + R)``.  It must
 equal, integer for integer, JAX's Pallas ``modmatmul`` and
 ``modmatmul_batched`` run as ``tests/test_kernels.py`` runs them
 (``interpret=True``; ``ref.modmatmul*_ref`` for M31, whose window the
 Pallas kernel refuses past), and the port's barrett plain version.
 
-The choosers are pure functions of shapes, strides and pointers, so they
-are asked here which kernel each product and each attention call would get
-on the card.  The kernels themselves are held on the card in
+``tc_tiles`` lists the persistent kernel's walk, which must store every
+output tile once.  The choosers are pure functions of shapes, strides and
+pointers, so they are asked here which kernel each product and each
+attention call would get on the card.  The kernels themselves are held on the card in
 ``tests/test_torch_gpu.py``."""
 import dataclasses
 
@@ -27,11 +29,15 @@ from repro.kernels.modmatmul import modmatmul_batched as j_modmatmul_batched
 from repro.mpc.field import P_DEFAULT, P_MERSENNE31
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.analysis import overflow
+from repro_torch.kernels import modmatmul as mm
 from repro_torch.kernels.modmatmul import (
     K_RUN_MAX,
     choose_instance,
     modmatmul_plain,
     modmatmul_tc_emulation,
+    tc_grid,
+    tc_tiles,
 )
 from repro_torch.models import layers
 from repro_torch.models import transformer as tr
@@ -102,11 +108,14 @@ def test_all_p_minus_1_corner_across_the_run_boundary(p, k):
     np.testing.assert_array_equal(modmatmul_plain(T(a), T(b), p=p).numpy(), want)
 
 
-def test_the_run_bound_is_tight():
+def test_the_run_bound_is_tight(monkeypatch):
     """At the limb domain's corner (every limb 255: x = 2^32 - 1) a run of
     8256 keeps each diagonal below 2^31 and a run of 8257 does not.  The
     fields' own corners stay below even at 8257 (their top limb is at most
-    127), so the constant is set by the 8-bit limbs, not by one prime."""
+    127), so the constant is set by the 8-bit limbs, not by one prime.  The
+    fold's first reduction is as late as it can be: after D_2 the high
+    diagonals stay inside mod_p's domain at the corner, and taking D_1 in
+    too leaves it, in the emulation and in the certificate alike."""
     assert 4 * 255**2 * K_RUN_MAX < 2**31 <= 4 * 255**2 * (K_RUN_MAX + 1)
     top = 2**32 - 1
     p = P_DEFAULT
@@ -124,6 +133,14 @@ def test_the_run_bound_is_tight():
         b = torch.full((1, k, 1), p - 1, dtype=torch.int64)
         assert int(modmatmul_tc_emulation(a, b, p=p, run=k)) == (
             pow(p - 1, 2, p) * k) % p
+    a = torch.full((1, 1, K_RUN_MAX), top, dtype=torch.int64)
+    b = torch.full((1, K_RUN_MAX, 1), top, dtype=torch.int64)
+    overflow.prove_tensor_core(P_DEFAULT, K_RUN_MAX)
+    monkeypatch.setattr(mm, "TC_FOLD_LOW", mm.TC_FOLD_LOW - 1)
+    with pytest.raises(OverflowError, match="high diagonals"):
+        modmatmul_tc_emulation(a, b, p=P_DEFAULT)
+    with pytest.raises(overflow.OverflowProofError, match="high diagonals"):
+        overflow.prove_tensor_core(P_DEFAULT, K_RUN_MAX)
 
 
 # ------------------------------------------------------------- the choosers
@@ -138,6 +155,35 @@ def test_the_run_bound_is_tight():
 ])
 def test_modmatmul_chooser(shape, want):
     assert choose_instance(*shape) == want
+
+
+# (W, M, N) for the tensor-core kernel's walk: the chooser's shapes, one
+# tile (fewer units than SMs), an odd number of M-tiles (960 = 15 x 64),
+# tile counts that are no multiple of 132, W = 5 and W = 34, ragged M and N
+WALK_SHAPES = [(17, 1024, 1024), (1, 17, 1), (3, 33, 17), (2, 64, 64),
+               (4, 256, 63), (1, 64, 64), (70000, 64, 64), (1, 960, 192),
+               (3, 960, 1000), (5, 1024, 1024), (34, 1024, 1024),
+               (5, 1000, 1100), (7, 100, 700)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("w,m,n", WALK_SHAPES)
+def test_tc_walk_visits_every_tile_once(w, m, n, sms):
+    """``tc_tiles``, the walk ``tc_grid``'s grid makes, stores every
+    ``(worker, m-tile, n-tile)`` exactly once, from the CTAs the grid
+    launches (two a cluster), and no CTA outside it."""
+    clusters, m_pairs, n_tiles = tc_grid(w, m, n, sms)
+    m_tiles = -(-m // 64)
+    assert m_pairs == -(-m_tiles // 2) and n_tiles == -(-n // 64)
+    assert clusters == max(1, min(w * m_pairs * n_tiles, sms // 2))
+    seen = {}
+    for cta, tile in tc_tiles(w, m, n, sms):
+        assert 0 <= cta < 2 * clusters
+        assert tile not in seen, (tile, cta, seen.get(tile))
+        seen[tile] = cta
+    assert len(seen) == w * m_tiles * n_tiles
+    assert set(seen) == {(i, j, k) for i in range(w) for j in range(m_tiles)
+                         for k in range(n_tiles)}
 
 
 def test_main_path_products_take_the_tensor_cores():
