@@ -1,0 +1,8 @@
+"""Device ms a traced step launched inside ``model.mamba`` (the Mamba
+sub-blocks' pre-norms and mixers: their forward and remat's recompute of
+it; their gradients run outside any span)."""
+from portbench.harness.spans import span_device_ms
+
+
+def read(ctx):
+    return span_device_ms(ctx, "model.mamba")

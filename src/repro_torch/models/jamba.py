@@ -9,6 +9,21 @@ even.  Layers are heterogeneous, so the weights are a :class:`Jamba`
 in the JAX ``init_params`` tree (a mamba layer's block under ``"mamba"``,
 a :class:`~repro_torch.models.ssm.Mamba`).
 
+The published Jamba departs from the reference in three ways a
+:class:`JambaConfig` selects (each default keeps the reference's path):
+the Mamba mixer's Δ at rank ``MambaConfig.dt_rank`` with its inner norms
+(:mod:`.ssm`), attention without RoPE (``attn_rope=False``) and a head
+tied to the embedding (``tie_embeddings``).  The configs of the model zoo
+are verbatim copies of the JAX package's, which has none of the first
+two; the benchmark builds AI21-Jamba2-3B's from its configuration file
+(``portbench/kinds/train_jamba.py``).
+
+Spans (:mod:`repro_torch.spans`): ``model.layers`` around the layers of a
+forward, and inside it one span a sub-block: ``model.mamba`` and
+``model.attention`` (the pre-norm and the token mixer) and ``model.mlp``
+(the FFN's norm and the FFN); ``model.loss`` is :func:`chunked_xent`'s.
+Under ``remat`` the recompute in the backward opens them again.
+
 Prefill attention runs the flash kernel on the card and the Mamba layers
 the selective-scan kernel.  Decode attends over a windowed KV cache in
 plain torch, written in place, and steps the Mamba states in plain torch,
@@ -28,6 +43,7 @@ from typing import List, Optional
 
 import torch
 
+from .. import spans
 from ..mpc.field import generator
 from .config import ModelConfig
 from .layers import (
@@ -49,9 +65,19 @@ from .transformer import logits_fn as logits_fn
 ATTN_WINDOW = 131072
 
 
+@dataclasses.dataclass(frozen=True)
+class JambaConfig(ModelConfig):
+    """:class:`ModelConfig` with the published Jamba's attention switch:
+    ``attn_rope`` False leaves q and k unrotated (Jamba has no positional
+    encoding)."""
+
+    attn_rope: bool = True
+
+
 class Jamba(Tree):
     """The whole model's weights: ``embed [Vp, D]``, ``layers`` (one tree a
-    layer), ``final_norm [D]`` and ``lm_head [D, Vp]`` (never tied)."""
+    layer), ``final_norm [D]`` and, unless ``cfg.tie_embeddings``,
+    ``lm_head [D, Vp]``."""
 
 
 def is_attn_layer(cfg: ModelConfig, l: int) -> bool:
@@ -104,8 +130,10 @@ def init_params(cfg: ModelConfig, key, *, device) -> Jamba:
                       "w2": mk((cfg.d_ff, d), cfg.d_ff)})
         layers.append(p)
     vp = cfg.padded_vocab()
-    return build(cfg, {"embed": mk((vp, d)), "layers": layers,
-                       "final_norm": ones(), "lm_head": mk((d, vp))})
+    tree = {"embed": mk((vp, d)), "layers": layers, "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = mk((d, vp))
+    return build(cfg, tree)
 
 
 def build(cfg: ModelConfig, tree) -> Jamba:
@@ -129,15 +157,26 @@ def _mix(cfg: ModelConfig, l: int, x, p, positions):
     """One layer's token mixer on the prefill path: ``(mix, (k, v, conv,
     ssm))``, the state its cache keeps."""
     b, t, _ = x.shape
-    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if is_attn_layer(cfg, l):
-        q, k, v = gqa_project(h, p, cfg, positions=positions)
-        attn = attention_chunked(q, k, v, causal=True)
-        return attn.reshape(b, t, -1) @ p["w_o"], (k, v, None, None)
-    mix, nc, ns = mamba_block(cfg, h, p["mamba"])
+        with spans.span("model.attention"):
+            h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+            q, k, v = gqa_project(h, p, cfg,
+                                  positions=_rope(cfg, positions))
+            attn = attention_chunked(q, k, v, causal=True)
+            return attn.reshape(b, t, -1) @ p["w_o"], (k, v, None, None)
+    with spans.span("model.mamba"):
+        h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+        mix, nc, ns = mamba_block(cfg, h, p["mamba"])
     return mix, (None, None, nc, ns)
 
 
+def _rope(cfg: ModelConfig, positions):
+    """The positions RoPE rotates by, or None where attention has none (a
+    plain ``ModelConfig`` has RoPE)."""
+    return positions if getattr(cfg, "attn_rope", True) else None
+
+
+@spans.spanned("model.mlp")
 def _ffn(cfg: ModelConfig, l: int, x, p):
     """The layer's FFN and its aux loss (0 on the dense layers)."""
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
@@ -164,9 +203,10 @@ def forward(cfg: ModelConfig, params: Jamba, tokens: torch.Tensor,
         ffn, aux = _ffn(cfg, l, x, p)
         return x + ffn, aux
 
-    for l, p in enumerate(params.layers):
-        x, aux = remat(block, x, l, p) if cfg.remat else block(x, l, p)
-        aux_total = aux_total + aux
+    with spans.span("model.layers"):
+        for l, p in enumerate(params.layers):
+            x, aux = remat(block, x, l, p) if cfg.remat else block(x, l, p)
+            aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, aux_total / cfg.n_layers
 
@@ -248,7 +288,8 @@ def decode_step(cfg: ModelConfig, params: Jamba, cache: JambaCache,
     for l, p in enumerate(params.layers):
         h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
         if is_attn_layer(cfg, l):
-            q, k_new, v_new = gqa_project(h, p, cfg, positions=positions)
+            q, k_new, v_new = gqa_project(h, p, cfg,
+                                          positions=_rope(cfg, positions))
             lc = cache.kv[l]
             slot = min(pos, lc.k.shape[1] - 1)  # windowed KV at long context
             attn, nlc = decode_attention(q, lc, k_new, v_new, pos=slot)
